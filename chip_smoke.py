@@ -9,17 +9,27 @@ Phases, in order; any failure raises and the process exits non-zero:
      CUDA versions, and the build of the hand-written kernels from the
      sources in this checkout (``build/repro_torch_kernels/``);
   2. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes, in bf16 (tolerance 2e-2) and f32 (2e-5);
+     serving paths' shapes, in bf16 (tolerance 2e-2) and f32 (2e-5); the
+     int8-cache decode mode at llama-2-7b's (B=8, S=2048, H=KV=32,
+     hd=128, bf16 q, 2e-2);
   3. timing with CUDA events (median of 30 runs after warm-up, L2 flushed
      before each run): kernel, plain version, and one PyTorch library call
      of the same function (``scaled_dot_product_attention``, a yardstick
-     only), beside the least time the card could take;
+     only; for the int8 mode on the cache dequantized beforehand, the
+     dequantization not timed), beside the least time the card could take;
   4. a small reduced model on the card (kernels) against the same model
      on the CPU (plain versions), logits within 1e-3;
   5. serving: full-width qwen3-0.6b (28 layers, bf16, seeded random
      weights) on two ``LLMInstance`` engines through the port's
      ``serve_engine``, with the kernels' launch counts read around that
-     run alone.
+     run alone;
+  6. the serving gateway: full-width llama-2-7b (32 layers, bf16, seeded
+     random weights) on two engines with int8 KV caches (8 slots x 2048
+     tokens), one seeded stream of 24 requests served through the port's
+     ``serve_gateway`` under the RL policy (a seeded decomposed
+     Q-network on the card, held against the same network on the CPU)
+     and under the mixing heuristic, with the launch counts read around
+     each run.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -28,6 +38,7 @@ no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -40,6 +51,7 @@ SRC = os.path.join(ROOT, "src")
 
 BF16_TOL, F32_TOL = 2e-2, 2e-5
 REDUCED_TOL = 1e-3
+Q_TOL = 1e-5                 # RL Q-values, card against CPU (TF32 off)
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 TIMING_RUNS = 30
@@ -49,6 +61,9 @@ DA_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu")
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:68"
 DA_REPLACES = "src/repro/kernels/decode_attention/kernel.py:64"
+DA8_REPLACES = "src/repro/kernels/decode_attention/kernel.py:98"
+# llama-2-7b's decode attention: n_slots=8, cache 2048, MHA 32 x 128
+LLAMA_DECODE = dict(b=8, s=2048, h=32, kvh=32, hd=128)
 
 
 def log(*a):
@@ -65,10 +80,11 @@ def gpu_line() -> str:
 
 # -- phase 2: kernels against their plain versions ----------------------------
 
-def check_kernels(torch, fa, da):
+def check_kernels(torch, fa, da, quantize_kv):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0,
+            "decode_attention_int8": 0.0}
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -95,8 +111,26 @@ def check_kernels(torch, fa, da):
         compare("decode_attention", da.decode_attention(q, k, v, lens),
                 da.decode_attention_plain(q, k, v, lens), tol,
                 f"decode {dtype} B=8 S=1024 kv_len={lens.tolist()}")
+    ld = LLAMA_DECODE
+    q = rand((ld["b"], 1, ld["h"], ld["hd"]), torch.bfloat16)
+    (k, ks), (v, vs) = (int8_cache(torch, quantize_kv, g, **ld)
+                        for _ in range(2))
+    lens = torch.tensor([1, 2, 37, 500, 1000, 2047, 2048, 2100],
+                        dtype=torch.int32, device=dev)
+    compare("decode_attention_int8",
+            da.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs),
+            da.decode_attention_plain(q, k, v, lens, ks, vs), BF16_TOL,
+            f"decode int8 cache, bf16 q, B=8 S=2048 H=KV=32 hd=128 "
+            f"kv_len={lens.tolist()}")
     torch.cuda.synchronize()
     return errs
+
+
+def int8_cache(torch, quantize_kv, g, b, s, kvh, hd, **_):
+    """A random cache as the model writes it: normal K (or V) quantized
+    per token and head (int8 [B,S,KV,hd], bf16 scales [B,S,KV])."""
+    x = torch.randn((b, s, kvh, hd), generator=g, device="cuda")
+    return quantize_kv(x)
 
 
 # -- phase 3: timing ----------------------------------------------------------
@@ -136,7 +170,8 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_kernels(torch, fa, da, prompt_len: int, kv_lens):
+def time_kernels(torch, fa, da, quantize_kv, prompt_len: int, kv_lens,
+                 kv_lens_int8):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
@@ -181,6 +216,35 @@ def time_kernels(torch, fa, da, prompt_len: int, kv_lens):
                                    bound_ms=b_ms, bound_by=b_by,
                                    shape=f"B={b} S={s} H=16 KV=8 hd=128 "
                                    f"bf16 kv_len={kv_lens}")
+    # decode, int8 cache: llama-2-7b's shapes, this run's kv_len
+    ld = LLAMA_DECODE
+    b, s, h, kvh, hd = ld["b"], ld["s"], ld["h"], ld["kvh"], ld["hd"]
+    q = rand(b, 1, h, hd)
+    (k, ks), (v, vs) = (int8_cache(torch, quantize_kv, g, **ld)
+                        for _ in range(2))
+    lens = torch.tensor(kv_lens_int8, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[
+        :, None, None, :]
+    # the yardstick reads a cache dequantized beforehand (not timed)
+    kd = (k.float() * ks.float()[..., None]).to(bf)
+    vd = (v.float() * vs.float()[..., None]).to(bf)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
+    ms = time_ms(torch, lambda: da.decode_attention(
+        q, k, v, lens, k_scale=ks, v_scale=vs), flush)
+    plain = time_ms(torch, lambda: da.decode_attention_plain(
+        q, k, v, lens, ks, vs), flush)
+    lib = time_ms(torch, lambda: sdpa(torch, qt, kt, vt, attn_mask=mask),
+                  flush)
+    valid = sum(min(max(n, 0), s) for n in kv_lens_int8)
+    # int8 K and V, bf16 scales of both, bf16 q and out, int32 kv_len
+    b_ms, b_by = bound(4 * hd * h * valid,
+                       2 * valid * kvh * hd + 2 * 2 * valid * kvh
+                       + 2 * 2 * b * h * hd + 4 * b)
+    out["decode_attention_int8"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B={b} S={s} H=KV={h} hd={hd} int8 cache bf16 q "
+        f"kv_len={kv_lens_int8}; library = sdpa on the pre-dequantized "
+        "bf16 cache")
     for name, r in out.items():
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
@@ -250,33 +314,8 @@ def serve(torch, np, modules):
     step_s = {"prefill": [], "decode": []}
 
     def engines():
-        insts = [LLMInstance(cfg, params, prof, get_scheduler("fcfs"),
-                             n_slots=8, cache_len=1024, instance_id=i,
-                             device="cuda") for i in range(2)]
-        for inst in insts:
-            pre, dec = inst.prefill_fn, inst.decode_fn
-
-            # host clock around each model pass; the engine waits for
-            # the logits right after each pass anyway
-            def prefill(*a, _f=pre, **kw):
-                t = time.perf_counter()
-                logits, cache = _f(*a, **kw)
-                torch.cuda.synchronize()
-                step_s["prefill"].append(time.perf_counter() - t)
-                assert logits.shape == (1, cfg.vocab_size)
-                finite.append(torch.isfinite(logits).all())
-                return logits, cache
-
-            def decode(*a, _f=dec, **kw):
-                t = time.perf_counter()
-                logits, cache = _f(*a, **kw)
-                torch.cuda.synchronize()
-                step_s["decode"].append(time.perf_counter() - t)
-                assert logits.shape == (8, cfg.vocab_size)
-                finite.append(torch.isfinite(logits).all())
-                return logits, cache
-            inst.prefill_fn, inst.decode_fn = prefill, decode
-        return insts
+        return timed_engines(torch, LLMInstance, get_scheduler, cfg, params,
+                             prof, 1024, step_s, finite)
 
     # warm-up on throwaway engines (cuBLAS handles, allocator)
     serve_mod.serve_engine(args, engines(), [
@@ -296,14 +335,14 @@ def serve(torch, np, modules):
     for v in step_s.values():
         v.clear()
     torch.cuda.synchronize()
-    fa.launches = 0
-    da.launches = 0
+    fa.launches = da.launches = da.launches_int8 = 0
     t0 = time.perf_counter()
     stats = serve_mod.serve_engine(args, insts, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa.launches,
-                "decode_attention": da.launches}
+                "decode_attention": da.launches,
+                "decode_attention_int8": da.launches_int8}
     admissions = sum(i.n_prefills for i in insts)
     iters = sum(i.n_decode_steps for i in insts)
     assert stats["n"] == len(reqs), stats
@@ -313,6 +352,7 @@ def serve(torch, np, modules):
         launches, admissions)
     assert launches["decode_attention"] == cfg.n_layers * iters > 0, (
         launches, iters)
+    assert launches["decode_attention_int8"] == 0, launches
     out_tok = sum(r.decode_tokens for r in reqs)
     log(f"  served {len(reqs)} requests ({admissions} admissions, "
         f"{iters} decode iterations, preemptions {stats['preemptions']}) "
@@ -334,6 +374,40 @@ def serve(torch, np, modules):
                           decode_step_median_ms=dec_ms,
                           in_model_s=in_model, stats=stats,
                           decode_profile=device)
+
+
+def timed_engines(torch, LLMInstance, get_scheduler, cfg, params, prof,
+                  cache_len, step_s, finite, n=2, n_slots=8):
+    """``n`` engines whose model passes are timed on the host clock
+    (synchronised) into ``step_s`` and whose logits are checked for
+    shape and collected for a finiteness check in ``finite``."""
+    insts = [LLMInstance(cfg, params, prof, get_scheduler("fcfs"),
+                         n_slots=n_slots, cache_len=cache_len,
+                         instance_id=i, device="cuda") for i in range(n)]
+    for inst in insts:
+        pre, dec = inst.prefill_fn, inst.decode_fn
+
+        # host clock around each model pass; the engine waits for the
+        # logits right after each pass anyway
+        def prefill(*a, _f=pre, **kw):
+            t = time.perf_counter()
+            logits, cache = _f(*a, **kw)
+            torch.cuda.synchronize()
+            step_s["prefill"].append(time.perf_counter() - t)
+            assert logits.shape == (1, cfg.vocab_size)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+
+        def decode(*a, _f=dec, **kw):
+            t = time.perf_counter()
+            logits, cache = _f(*a, **kw)
+            torch.cuda.synchronize()
+            step_s["decode"].append(time.perf_counter() - t)
+            assert logits.shape == (n_slots, cfg.vocab_size)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        inst.prefill_fn, inst.decode_fn = prefill, decode
+    return insts
 
 
 def profile_decode(torch, inst, step_ms: float, steps: int = 5):
@@ -376,6 +450,159 @@ def profile_decode(torch, inst, step_ms: float, steps: int = 5):
                 decode_attention_ms=attn, kernels_per_step=kernels)
 
 
+# -- phase 6: the gateway over full-width llama-2-7b, int8 KV cache ----------
+
+GATEWAY_REQUESTS = 24
+GATEWAY_RATE = 1.0           # arrivals per second of the virtual clock
+
+
+def gateway_stream(np, Request):
+    """One seeded stream: prompts 100-1500 tokens, outputs 16-128,
+    Poisson arrivals; explicit rids so every policy's engines draw the
+    same prompt tokens."""
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(100, 1501, GATEWAY_REQUESTS)
+    outputs = rng.integers(16, 129, GATEWAY_REQUESTS)
+    arrivals = np.cumsum(rng.exponential(1 / GATEWAY_RATE,
+                                         GATEWAY_REQUESTS))
+    return [Request(prompt_tokens=int(p), decode_tokens=int(d),
+                    arrival=float(a), tenant="chat", rid=20_000 + i)
+            for i, (p, d, a) in enumerate(zip(prompts, outputs, arrivals))]
+
+
+def gateway_phase(torch, np, m):
+    """Phase 6: both policies on the same stream through the port's
+    ``serve_gateway``, each on fresh engines, launch counts read around
+    each run."""
+    cfg = dataclasses.replace(m.get_config("llama-2-7b"),
+                              kv_cache_dtype="int8")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype) == (
+        32, 4096, 32, 32, 128, 11008, 32000, "bfloat16"), cfg
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = m.params_lib.init_params(cfg, gen, device="cuda")
+    n_params = m.params_lib.count_tensor_params(params)
+    assert n_params == cfg.count_params(), (n_params, cfg.count_params())
+    torch.cuda.synchronize()
+    log(f"  llama-2-7b: {n_params} parameters (bf16, "
+        f"{n_params * 2 / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t0:.2f} s; int8 KV cache, 2 engines x 8 "
+        "slots x 2048 tokens")
+    prof = m.profiles.V100_LLAMA2_7B
+    args = m.serve_mod.build_parser().parse_args(
+        ["--mode", "gateway", "--backend", "engine", "--instances", "2",
+         "--requests", str(GATEWAY_REQUESTS)])
+    rcfg = m.serve_mod._router_cfg(args)
+    finite = []
+    step_s = {"prefill": [], "decode": []}
+
+    def engines():
+        return timed_engines(torch, m.LLMInstance, m.get_scheduler, cfg,
+                             params, prof, 2048, step_s, finite)
+
+    # warm-up on throwaway engines (cuBLAS handles, allocator)
+    m.serve_mod.serve_gateway(
+        args, engines(), m.make_gateway_policy("mixing", rcfg),
+        [m.Request(prompt_tokens=64, decode_tokens=4, rid=30_000 + i,
+                   arrival=0.0) for i in range(2)])
+    torch.cuda.empty_cache()
+    out, launches_by_policy = {}, {}
+    for name in ("rl", "mixing"):
+        insts = engines()
+        recorded = []
+        if name == "rl":
+            agent = m.rl.make_agent(rcfg, m=2, device="cuda")
+            act = agent.act
+
+            def recording_act(state, mask, epsilon=0.0, prior=None,
+                              q_squash=0.0, _act=act):
+                a = _act(state, mask, epsilon=epsilon, prior=prior,
+                         q_squash=q_squash)
+                recorded.append((state, mask, prior, q_squash, a))
+                return a
+            agent.act = recording_act
+            policy = m.RLPolicy(agent, rcfg)
+        else:
+            policy = m.make_gateway_policy("mixing", rcfg)
+        reqs = gateway_stream(np, m.Request)
+        finite.clear()
+        for v in step_s.values():
+            v.clear()
+        torch.cuda.synchronize()
+        m.fa.launches = m.da.launches = m.da.launches_int8 = 0
+        t0 = time.perf_counter()
+        stats = m.serve_mod.serve_gateway(args, insts, policy, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": m.fa.launches,
+                    "decode_attention": m.da.launches,
+                    "decode_attention_int8": m.da.launches_int8}
+        admissions = sum(i.n_prefills for i in insts)
+        iters = sum(i.n_decode_steps for i in insts)
+        assert stats["n"] == len(reqs), stats
+        assert all(r.decoded == r.decode_tokens for r in reqs)
+        assert bool(torch.stack(finite).all()), "non-finite logits"
+        assert launches["flash_attention"] == cfg.n_layers * admissions \
+            > 0, (launches, admissions)
+        assert launches["decode_attention_int8"] == cfg.n_layers * iters \
+            > 0, (launches, iters)
+        assert launches["decode_attention"] == 0, launches
+        launches_by_policy[name] = launches
+        out_tok = sum(r.decode_tokens for r in reqs)
+        dec_ms = statistics.median(step_s["decode"]) * 1e3
+        pre_ms = statistics.median(step_s["prefill"]) * 1e3
+        snap = stats["snapshot"]
+        pct = {k: (snap[k].get("p50"), snap[k].get("p95"))
+               for k in ("ttft", "tbt", "e2e")}
+        log(f"  [{name}] served {stats['n']} of {len(reqs)}, admitted "
+            f"{stats['admitted']}, shed {stats['shed']}, preemptions "
+            f"{stats['preemptions']}; {admissions} admissions, {iters} "
+            f"decode iterations; launches {launches}")
+        log(f"  [{name}] virtual clock (profile {prof.name}, the router's "
+            "model of the hardware, not the card): " + ", ".join(
+                f"{k} p50/p95 {a:.3f}/{b:.3f} s" for k, (a, b)
+                in pct.items()))
+        log(f"  [{name}] wall {wall:.3f} s on the card, {out_tok / wall:.1f}"
+            f" output tok/s; gang decode step median {dec_ms:.2f} ms, "
+            f"prefill median {pre_ms:.2f} ms")
+        device = profile_decode(torch, insts[0], dec_ms)
+        res = dict(wall_s=wall, output_tokens=out_tok,
+                   output_tok_s=out_tok / wall, admissions=admissions,
+                   decode_iterations=iters, launches=launches,
+                   decode_step_median_ms=dec_ms, prefill_median_ms=pre_ms,
+                   virtual_percentiles=pct, stats=stats,
+                   decode_profile=device)
+        if name == "rl":
+            res["q_check"] = check_q_on_cpu(torch, np, m, agent, recorded)
+        out[name] = res
+        del insts
+        torch.cuda.empty_cache()
+    return launches_by_policy, out
+
+
+def check_q_on_cpu(torch, np, m, agent, recorded):
+    """The RL decisions' Q-values on the card against the same network
+    on the CPU (TF32 off), within Q_TOL of their scale."""
+    assert recorded, "the RL policy made no decisions"
+    states = np.stack([r[0] for r in recorded]).astype(np.float32)
+    q_card = m.dqn.q_values(agent.params, states)
+    cpu = m.dqn.DQNAgent(agent.cfg, device="cpu")
+    cpu.from_reference(agent.params.reference_tree())
+    q_cpu = m.dqn.q_values(cpu.params, states)
+    err = float(np.abs(q_card - q_cpu).max())
+    scale = float(np.abs(q_cpu).max())
+    assert err <= Q_TOL * max(scale, 1.0), (err, scale)
+    same = sum(int(cpu.act(s, mask, prior=prior, q_squash=qs) == a)
+               for s, mask, prior, qs, a in recorded)
+    log(f"  [rl] {len(recorded)} decisions: Q on the card vs the CPU max "
+        f"abs err {err:.3e} (|Q| <= {scale:.3f}, tol {Q_TOL} x max(|Q|, "
+        f"1)); the CPU network picks the same action in {same} of "
+        f"{len(recorded)}")
+    return dict(decisions=len(recorded), max_abs_err=err, q_scale=scale,
+                same_action=same)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None,
@@ -393,14 +620,16 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import profiles
+    from repro_torch.core import dqn, profiles, rl_router as rl
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model as model_lib
     from repro_torch.models import params as params_lib
+    from repro_torch.models.attention import quantize_kv
     from repro_torch.serving.engine import LLMInstance
+    from repro_torch.serving.policies import RLPolicy, make_gateway_policy
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import get_scheduler
     assert not any(m == "jax" or m.startswith(("jax.", "repro."))
@@ -410,7 +639,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
-    log(f"[1/5] environment: {gpu}; torch {torch.__version__}, CUDA "
+    log(f"[1/6] environment: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = build.library_path()
@@ -421,29 +650,53 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    log("[2/5] kernels against their plain versions on the card")
-    errs = check_kernels(torch, fa, da)
+    log("[2/6] kernels against their plain versions on the card")
+    errs = check_kernels(torch, fa, da, quantize_kv)
 
-    log("[3/5] timing (CUDA events, median of "
+    log("[3/6] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
     kv_rng = np.random.default_rng(2)
     kv_lens = [int(x) for x in kv_rng.integers(100, 1025, 7)] + [1100]
-    times = time_kernels(torch, fa, da, prompt_len=512, kv_lens=kv_lens)
+    kv_lens_int8 = [int(x) for x in kv_rng.integers(100, 2049, 7)] + [2100]
+    times = time_kernels(torch, fa, da, quantize_kv, prompt_len=512,
+                         kv_lens=kv_lens, kv_lens_int8=kv_lens_int8)
 
-    log("[4/5] reduced model: card (kernels) against CPU (plain)")
+    log("[4/6] reduced model: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
 
-    log("[5/5] serve full-width qwen3-0.6b through serve_engine")
+    log("[5/6] serve full-width qwen3-0.6b through serve_engine")
     launches, served = serve(torch, np, (
         get_config, params_lib, LLMInstance, profiles, get_scheduler,
         Request, serve_mod, fa, da))
+    torch.cuda.empty_cache()
+
+    log("[6/6] the gateway over full-width llama-2-7b (int8 KV cache) "
+        "through serve_gateway, policies rl and mixing")
+    mods = argparse.Namespace(
+        get_config=get_config, params_lib=params_lib, profiles=profiles,
+        serve_mod=serve_mod, LLMInstance=LLMInstance,
+        get_scheduler=get_scheduler, make_gateway_policy=make_gateway_policy,
+        RLPolicy=RLPolicy, Request=Request, rl=rl, dqn=dqn, fa=fa, da=da)
+    gw_launches, gateway = gateway_phase(torch, np, mods)
+    # each path's own counts (reset before it, read after it): phase 5's
+    # serve_engine and phase 6's gateway under each policy
+    by_path = {"serve_engine": launches,
+               "gateway_rl": gw_launches["rl"],
+               "gateway_mixing": gw_launches["mixing"]}
+    log(f"  launches per serving path: {by_path}")
 
     kernels = []
     for name, src, rep in (("flash_attention", FA_SOURCE, FA_REPLACES),
-                           ("decode_attention", DA_SOURCE, DA_REPLACES)):
+                           ("decode_attention", DA_SOURCE, DA_REPLACES),
+                           ("decode_attention_int8", DA_SOURCE,
+                            DA8_REPLACES)):
         t = times[name]
+        per_path = {p: c[name] for p, c in by_path.items()
+                    if c.get(name)}
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
+                        "replaces": rep,
+                        "launches": sum(per_path.values()),
+                        "launches_by_path": per_path,
                         "max_abs_err": errs[name], "ms": t["ms"],
                         "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"],
@@ -463,7 +716,8 @@ def main(argv=None) -> int:
                        "cuda": torch.version.cuda, "kernels": kernels,
                        "timing_shapes": {n: t["shape"]
                                          for n, t in times.items()},
-                       "serve": served}, f, indent=1, default=str)
+                       "serve": served, "gateway": gateway}, f, indent=1,
+                      default=str)
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -37,6 +37,9 @@ SIGNATURES = {
     # q, k, v, kv_len, o, B, S, H, KV, hd, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P),
+    # q, k, v, k_scale, v_scale, kv_len, o, B, S, H, KV, hd, dtype, stream
+    "repro_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _P),
 }
 
 

@@ -31,10 +31,6 @@ def quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
-def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return q.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
-
-
 def project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor) -> Tuple[torch.Tensor,
                                                   torch.Tensor,
@@ -105,20 +101,26 @@ def self_attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Single-token decode.  x [B,1,d]; position [B] absolute position of
     the new token; cache_entry = {k, v [B,S,KV,hd]} (+ int8 scales) with
     S = cache_len, updated in place.  Attention runs through the decode
-    kernel with kv_len = position + 1, which may exceed S."""
+    kernel with kv_len = position + 1, which may exceed S.
+
+    An int8 cache goes to the kernel as it is, with its bf16 scales: the
+    kernel dequantizes in f32 and rounds its output to bf16, as the
+    Pallas kernel's int8 mode does.  (The reference's model dequantizes
+    to bf16 before attention instead, ``attention.py:233-240``, so the
+    two may differ in the last bf16 bit of a cached value.)"""
     q, k_new, v_new = project_qkv(p, cfg, x, position[:, None])
+    kv_len = (position + 1).to(torch.int32)
     if cfg.kv_cache_dtype == "int8":
         for name, t in (("k", k_new), ("v", v_new)):
             tq, ts = quantize_kv(t)
             _write_token(cache_entry[name], tq[:, 0], position)
             _write_token(cache_entry[name + "_scale"], ts[:, 0], position)
-        k_read = dequantize_kv(cache_entry["k"], cache_entry["k_scale"])
-        v_read = dequantize_kv(cache_entry["v"], cache_entry["v_scale"])
-        k_read, v_read = k_read.to(q.dtype), v_read.to(q.dtype)
+        out = da_ops.decode_attention(
+            q, cache_entry["k"], cache_entry["v"], kv_len,
+            k_scale=cache_entry["k_scale"], v_scale=cache_entry["v_scale"])
     else:
         _write_token(cache_entry["k"], k_new[:, 0], position)
         _write_token(cache_entry["v"], v_new[:, 0], position)
-        k_read, v_read = cache_entry["k"], cache_entry["v"]
-    out = da_ops.decode_attention(q, k_read, v_read,
-                                  (position + 1).to(torch.int32))
+        out = da_ops.decode_attention(q, cache_entry["k"],
+                                      cache_entry["v"], kv_len)
     return _out_proj(out, p)

@@ -63,6 +63,61 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     torch.cuda.synchronize()
 
 
+def _int8_cache(g, dev, b, s, kv, hd):
+    """A random int8 cache and its bf16 scales, as the model's
+    ``quantize_kv`` lays them out ([B,S,KV,hd] and [B,S,KV])."""
+    vals = torch.randint(-127, 128, (b, s, kv, hd), generator=g,
+                         device=dev).to(torch.int8)
+    scale = (torch.rand((b, s, kv), generator=g, device=dev) * 0.05
+             + 1e-3).to(torch.bfloat16)
+    return vals, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_int8_matches_plain(cuda_device, dtype):
+    """The int8-cache mode against its plain version, at llama-2-7b's
+    decode shapes (MHA, hd=128) and a GQA shape, kv_len incl. 1, S and
+    past S; 2e-2 as for the bf16 mode."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, s, h, kv, hd in ((8, 2048, 32, 32, 128), (2, 256, 8, 2, 64),
+                            (3, 96, 4, 4, 32)):
+        q = _rand(g, cuda_device, dtype, b, 1, h, hd)
+        k, ks = _int8_cache(g, cuda_device, b, s, kv, hd)
+        v, vs = _int8_cache(g, cuda_device, b, s, kv, hd)
+        lens = torch.tensor([1, s, s + 52, 0, 17, s // 2, s - 1, 100][:b],
+                            dtype=torch.int32, device=cuda_device)
+        before, before_f = da.launches_int8, da.launches
+        out = da.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+        assert (da.launches_int8, da.launches) == (before + 1, before_f)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(
+            out.float(),
+            da.decode_attention_plain(q, k, v, lens, ks, vs).float(),
+            rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_int8_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = _rand(g, cuda_device, torch.bfloat16, 2, 1, 4, 64)
+    k, ks = _int8_cache(g, cuda_device, 2, 32, 4, 64)
+    lens = torch.tensor([3, 4], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="k_scale"):
+        da.decode_attention(q, k, k, lens)          # int8 without scales
+    with pytest.raises(TypeError, match="bfloat16"):
+        da.decode_attention(q, k, k, lens, k_scale=ks.float(),
+                            v_scale=ks.float())
+    with pytest.raises(ValueError, match="shapes"):
+        da.decode_attention(q, k, k, lens, k_scale=ks[:, :16].contiguous(),
+                            v_scale=ks[:, :16].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, k, k, lens, k_scale=ks.transpose(0, 1),
+                            v_scale=ks)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 4, 4, 16), device=cuda_device)   # head_dim 16

@@ -73,13 +73,42 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--mode", "engine", "--requests", "1",
                     "--instances", "1", "--arch", "qwen3-0.6b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--mode", "gateway", "--backend", "engine",
+                    "--requests", "1", "--instances", "1",
+                    "--arch", "qwen3-0.6b"])
 
 
 def test_serve_cli_refuses_unported_modes():
     from repro_torch.launch import serve
-    for mode in ("sim", "gateway"):
+    for argv in (["--mode", "sim"],
+                 ["--mode", "gateway"],
+                 ["--mode", "gateway", "--backend", "py"],
+                 ["--mode", "gateway", "--backend", "vec"],
+                 ["--mode", "gateway", "--backend", "engine",
+                  "--metrics-out", "m.json"],
+                 ["--calibrate"]):
         with pytest.raises(SystemExit, match="later slice"):
-            serve.main(["--mode", mode, "--device", "cpu"])
+            serve.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="simulator backend"):
+        serve.main(["--mode", "gateway", "--backend", "engine", "--online",
+                    "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--pattern", "poisson"], ["--sim-backend", "py"], ["--sessions"],
+    ["--guardrail", "0.1"], ["--online-eps", "0.1"], ["--drift"],
+    ["--save-learner", "d"], ["--min-r2", "0.5"],
+    ["--train-episodes", "2"]])
+def test_serve_cli_rejects_simulator_only_flags(flag, capsys):
+    """Flags that only the simulator, online or calibration modes read
+    are not accepted over engines, so none is silently ignored."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit) as exc:
+        serve.build_parser().parse_args(
+            ["--mode", "gateway", "--backend", "engine"] + flag)
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_chip_smoke_fails_without_the_card(tmp_path):

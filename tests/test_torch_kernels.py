@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.decode_attention import kernel as ref_da_kernel
 from repro.kernels.decode_attention import ops as ref_da
 from repro.kernels.flash_attention import ops as ref_fa
+from repro.models.attention import quantize_kv as ref_quantize_kv
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 
@@ -116,6 +118,72 @@ def test_decode_plain_kv_len_edges_match_reference(lens, dtype):
     out = da.decode_attention(qt, kt, vt, torch.from_numpy(lens))
     ref = ref_da.reference(qj, kj, vj, jnp.asarray(lens))
     _close(out, ref, DTYPES[dtype][2])
+
+
+def _int8_pair(rng, shape):
+    """The same int8 cache and bf16 scales [B,S,KV] on both sides: seeded
+    normal K/V quantized by the JAX model's ``quantize_kv``, as the
+    engines' caches and ``tests/test_kernels.py``'s int8 test hold them."""
+    vals, scale = ref_quantize_kv(jnp.asarray(
+        rng.standard_normal(shape).astype(np.float32)))
+    return ((vals, scale),
+            (torch.from_numpy(np.array(vals)),
+             torch.from_numpy(np.array(scale.astype(jnp.float32))).to(
+                 torch.bfloat16)))
+
+
+@pytest.mark.parametrize("kv_len", [1, 100, 256, 300])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_int8_plain_matches_pallas(kv_len, dtype):
+    """The int8-cache mode's plain version against the Pallas kernel's
+    int8 mode in interpret mode: atol 1e-2 (its output is bf16), at
+    B=2, S=256, H=8, KV=2, hd=64, block_k=64, one kv_len past S."""
+    b, s, h, kv, hd = 2, 256, 8, 2, 64
+    rng = np.random.default_rng(4)
+    qj, qt = _pair(rng, (b, 1, h, hd), dtype)
+    (kj, ksj), (kt, kst) = _int8_pair(rng, (b, s, kv, hd))
+    (vj, vsj), (vt, vst) = _int8_pair(rng, (b, s, kv, hd))
+    lens = np.full((b,), kv_len, np.int32)
+    before = (da.launches, da.launches_int8)
+    out = da.decode_attention(qt, kt, vt, torch.from_numpy(lens),
+                              k_scale=kst, v_scale=vst)
+    assert (da.launches, da.launches_int8) == before
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    ref = ref_da_kernel.decode_attention_kernel(
+        qj, kj, vj, jnp.asarray(lens), block_k=64, k_scale=ksj,
+        v_scale=vsj, interpret=True)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=0, atol=1e-2)
+    if dtype == np.float32:
+        # the stated deviation, pinned: for an f32 q the port returns
+        # the f32 result unrounded, where the Pallas kernel rounds it
+        # through bf16 -- so the two differ by at most one bf16 ulp
+        got, want = out.numpy(), np.asarray(ref, np.float32)
+        mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), 1e-30)
+        ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+        assert np.all(np.abs(got - want) <= ulp)
+        assert np.array_equal(
+            want, np.asarray(ref.astype(jnp.bfloat16).astype(jnp.float32)))
+        assert bool((out != out.bfloat16().float()).any())
+
+
+def test_decode_int8_plain_is_the_dequantized_float_mode():
+    """The int8 plain version equals the float mode's plain version on
+    the f32-dequantized cache, kv_len edges included."""
+    rng = np.random.default_rng(5)
+    _, (k, ks) = _int8_pair(rng, (4, 24, 2, 32))
+    _, (v, vs) = _int8_pair(rng, (4, 24, 2, 32))
+    q = torch.from_numpy(rng.standard_normal((4, 1, 4, 32)).astype(
+        np.float32))
+    lens = torch.tensor([0, 1, 24, 40], dtype=torch.int32)
+    got = da.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+    want = da.decode_attention_plain(q, k.float() * ks.float()[..., None],
+                                     v.float() * vs.float()[..., None],
+                                     lens)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="both"):
+        da.decode_attention(q, k, v, lens, k_scale=ks)
 
 
 def test_wrappers_refuse_other_devices():
