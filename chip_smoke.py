@@ -11,14 +11,19 @@ Phases, in order; any failure raises and the process exits non-zero:
   2. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes, in bf16 (tolerance 2e-2) and f32 (2e-5); the
      int8-cache decode mode at llama-2-7b's (B=8, S=2048, H=KV=32,
-     hd=128, bf16 q, 2e-2);
+     hd=128, bf16 q, 2e-2); the selective scan at falcon-mamba-7b's
+     (B=1, S=1024, di=8192, ds=16, bf16 xc/b/c, f32 dt: y within 2e-2,
+     the f32 final state within 1e-4 of its scale) and at reduced f32
+     shapes with a ragged S and S=1 (1e-4);
   3. timing with CUDA events (median of 30 runs after warm-up, L2 flushed
      before each run): kernel, plain version, and one PyTorch library call
      of the same function (``scaled_dot_product_attention``, a yardstick
      only; for the int8 mode on the cache dequantized beforehand, the
-     dequantization not timed), beside the least time the card could take;
-  4. a small reduced model on the card (kernels) against the same model
-     on the CPU (plain versions), logits within 1e-3;
+     dequantization not timed; no single PyTorch call computes a
+     selective scan), beside the least time the card could take;
+  4. small reduced models (qwen3-0.6b, falcon-mamba-7b) on the card
+     (kernels) against the same models on the CPU (plain versions),
+     logits within 1e-3;
   5. serving: full-width qwen3-0.6b (28 layers, bf16, seeded random
      weights) on two ``LLMInstance`` engines through the port's
      ``serve_engine``, with the kernels' launch counts read around that
@@ -29,7 +34,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      ``serve_gateway`` under the RL policy (a seeded decomposed
      Q-network on the card, held against the same network on the CPU)
      and under the mixing heuristic, with the launch counts read around
-     each run.
+     each run;
+  7. the gateway over full-width falcon-mamba-7b (64 Mamba-1 layers,
+     bf16, seeded random weights) on two engines x 8 slots, one seeded
+     stream of 16 requests served through ``serve_gateway`` under the RL
+     policy, with the launch counts read around that run, and one
+     decode step and one prefill profiled.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -56,18 +66,42 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 TIMING_RUNS = 30
 
+SCAN_TOL = 1e-4              # tests/test_kernels.py's bound for the scan
+PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DA_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu")
-FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:68"
-DA_REPLACES = "src/repro/kernels/decode_attention/kernel.py:64"
-DA8_REPLACES = "src/repro/kernels/decode_attention/kernel.py:98"
+MS_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
+# name, source, the TPU kernel it replaces
+KERNELS = (
+    ("flash_attention", FA_SOURCE,
+     "src/repro/kernels/flash_attention/kernel.py:68"),
+    ("decode_attention", DA_SOURCE,
+     "src/repro/kernels/decode_attention/kernel.py:64"),
+    ("decode_attention_int8", DA_SOURCE,
+     "src/repro/kernels/decode_attention/kernel.py:98"),
+    ("mamba_scan", MS_SOURCE, "src/repro/kernels/mamba_scan/kernel.py:55"),
+)
 # llama-2-7b's decode attention: n_slots=8, cache 2048, MHA 32 x 128
 LLAMA_DECODE = dict(b=8, s=2048, h=32, kvh=32, hd=128)
+# falcon-mamba-7b's selective scan in a 1024-token prefill
+FALCON_SCAN = dict(b=1, s=1024, di=8192, ds=16)
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def reset_launches(m):
+    m.fa.launches = m.da.launches = m.da.launches_int8 = m.ms.launches = 0
+
+
+def read_launches(m) -> dict:
+    return {"flash_attention": m.fa.launches,
+            "decode_attention": m.da.launches,
+            "decode_attention_int8": m.da.launches_int8,
+            "mamba_scan": m.ms.launches}
 
 
 def gpu_line() -> str:
@@ -80,11 +114,11 @@ def gpu_line() -> str:
 
 # -- phase 2: kernels against their plain versions ----------------------------
 
-def check_kernels(torch, fa, da, quantize_kv):
+def check_kernels(torch, fa, da, ms, quantize_kv):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
-            "decode_attention_int8": 0.0}
+            "decode_attention_int8": 0.0, "mamba_scan": 0.0}
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -122,8 +156,44 @@ def check_kernels(torch, fa, da, quantize_kv):
             da.decode_attention_plain(q, k, v, lens, ks, vs), BF16_TOL,
             f"decode int8 cache, bf16 q, B=8 S=2048 H=KV=32 hd=128 "
             f"kv_len={lens.tolist()}")
+    fs = FALCON_SCAN
+    for (b, s, di, ds), act in (((fs["b"], fs["s"], fs["di"], fs["ds"]),
+                                 torch.bfloat16),
+                                ((2, 50, 128, 8), torch.float32),
+                                ((2, 1, 128, 8), torch.float32),
+                                ((1, 64, 256, 4), torch.float32)):
+        args = scan_inputs(torch, g, b, s, di, ds, act)
+        y, hf = ms.mamba_scan(*args)
+        y_ref, h_ref = ms.mamba_scan_plain(*args)
+        bf16 = act == torch.bfloat16
+        what = (f"mamba_scan {'bf16 xc/b/c' if bf16 else 'f32'}, f32 dt, "
+                f"B={b} S={s} di={di} ds={ds}")
+        compare("mamba_scan", y, y_ref, BF16_TOL if bf16 else SCAN_TOL,
+                what + " y")
+        err = float((hf - h_ref).abs().max())
+        scale = float(h_ref.abs().max())
+        assert hf.dtype == torch.float32 and err <= SCAN_TOL * max(
+            scale, 1.0), (what, err, scale)
+        log(f"  {what} h_final: max_abs_err={err:.3e} (|h| <= {scale:.3f},"
+            f" tol {SCAN_TOL} x max(|h|, 1))")
     torch.cuda.synchronize()
     return errs
+
+
+def scan_inputs(torch, g, b, s, di, ds, act_dtype):
+    """Selective-scan inputs as the model passes them: xc, b, c in
+    ``act_dtype``, dt in f32 (softplus-positive, ~0.07), a_log and d in
+    f32 (a_log = log(1..ds) per channel, as the model initialises it)."""
+    dev = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(rand(b, s, di)) * 0.1
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=dev)).repeat(di, 1)
+    return (rand(b, s, di).to(act_dtype), dt.contiguous(),
+            rand(b, s, ds).to(act_dtype), rand(b, s, ds).to(act_dtype),
+            a_log.contiguous(), torch.ones(di, device=dev))
 
 
 def int8_cache(torch, quantize_kv, g, b, s, kvh, hd, **_):
@@ -164,14 +234,14 @@ def sdpa(torch, q, k, v, **kw):
             q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), **kw)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_kernels(torch, fa, da, quantize_kv, prompt_len: int, kv_lens,
-                 kv_lens_int8):
+def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
+                 kv_lens, kv_lens_int8):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
@@ -245,9 +315,28 @@ def time_kernels(torch, fa, da, quantize_kv, prompt_len: int, kv_lens,
         shape=f"B={b} S={s} H=KV={h} hd={hd} int8 cache bf16 q "
         f"kv_len={kv_lens_int8}; library = sdpa on the pre-dequantized "
         "bf16 cache")
+    # selective scan: falcon-mamba-7b's prefill of 1024 tokens
+    fs = FALCON_SCAN
+    b, s, di, ds = fs["b"], fs["s"], fs["di"], fs["ds"]
+    args = scan_inputs(torch, g, b, s, di, ds, bf)
+    ms = time_ms(torch, lambda: scan.mamba_scan(*args), flush)
+    plain = time_ms(torch, lambda: scan.mamba_scan_plain(*args), flush)
+    # bf16 xc, b, c and y; f32 dt, a_log, d and h_final
+    nbytes = (2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds
+              + 4 * di * ds + 4 * di + 2 * b * s * di + 4 * b * di * ds)
+    # per (step, channel, state): dt*a, exp, the state's multiply-add
+    # (2), dt*x*B, h*C summed (2); per (step, channel): dt*x, D*x + sum
+    b_ms, b_by = bound(b * s * di * (7 * ds + 3), nbytes, PEAK_F32_FLOPS)
+    out["mamba_scan"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                             shape=f"B={b} S={s} di={di} ds={ds}, bf16 "
+                             "xc/b/c/y, f32 dt/a_log/d/h_final; no library"
+                             " call computes a selective scan")
     for name, r in out.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     del flush
     return out
@@ -256,31 +345,36 @@ def time_kernels(torch, fa, da, quantize_kv, prompt_len: int, kv_lens,
 # -- phase 4: reduced model, card against CPU --------------------------------
 
 def check_reduced_model(torch, get_config, params_lib, model_lib):
-    cfg = get_config("qwen3-0.6b").reduced(head_dim=32)
-    gen = torch.Generator().manual_seed(0)
-    p_cpu = params_lib.init_params(cfg, gen, device="cpu")
-    p_gpu = params_lib.from_reference(_tree_numpy(p_cpu), device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (2, 41),
-                         generator=torch.Generator().manual_seed(1))
-    with torch.no_grad():
-        lc, cc = model_lib.prefill(p_cpu, cfg, toks[:, :37], cache_len=39)
-        lg, cg = model_lib.prefill(p_gpu, cfg, toks[:, :37].cuda(),
-                                   cache_len=39)
-        pairs = [(lc, lg)]
-        for t in range(37, 41):    # the last two run past the cache
-            lc, cc = model_lib.decode_step(p_cpu, cfg, cc, toks[:, t])
-            lg, cg = model_lib.decode_step(p_gpu, cfg, cg, toks[:, t].cuda())
-            pairs.append((lc, lg))
-    err = 0.0
-    for i, (c, gpu) in enumerate(pairs):
-        gpu = gpu.cpu()
-        assert gpu.shape == (2, cfg.vocab_size), gpu.shape
-        assert torch.isfinite(gpu).all(), f"step {i}: non-finite logits"
-        torch.testing.assert_close(gpu, c, rtol=REDUCED_TOL,
-                                   atol=REDUCED_TOL)
-        err = max(err, float((gpu - c).abs().max()))
-    log(f"  reduced qwen3-0.6b (hd=32, f32) prefill 37 + 4 decode: card vs "
-        f"CPU max_abs_err={err:.3e} (tol {REDUCED_TOL})")
+    for cfg, what in ((get_config("qwen3-0.6b").reduced(head_dim=32),
+                       "reduced qwen3-0.6b (hd=32, f32)"),
+                      (get_config("falcon-mamba-7b").reduced(),
+                       "reduced falcon-mamba-7b (f32)")):
+        gen = torch.Generator().manual_seed(0)
+        p_cpu = params_lib.init_params(cfg, gen, device="cpu")
+        p_gpu = params_lib.from_reference(_tree_numpy(p_cpu), device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (2, 41),
+                             generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            lc, cc = model_lib.prefill(p_cpu, cfg, toks[:, :37],
+                                       cache_len=39)
+            lg, cg = model_lib.prefill(p_gpu, cfg, toks[:, :37].cuda(),
+                                       cache_len=39)
+            pairs = [(lc, lg)]
+            for t in range(37, 41):    # the last two run past the cache
+                lc, cc = model_lib.decode_step(p_cpu, cfg, cc, toks[:, t])
+                lg, cg = model_lib.decode_step(p_gpu, cfg, cg,
+                                               toks[:, t].cuda())
+                pairs.append((lc, lg))
+        err = 0.0
+        for i, (c, gpu) in enumerate(pairs):
+            gpu = gpu.cpu()
+            assert gpu.shape == (2, cfg.vocab_size), gpu.shape
+            assert torch.isfinite(gpu).all(), f"step {i}: non-finite logits"
+            torch.testing.assert_close(gpu, c, rtol=REDUCED_TOL,
+                                       atol=REDUCED_TOL)
+            err = max(err, float((gpu - c).abs().max()))
+        log(f"  {what} prefill 37 + 4 decode: card vs CPU max_abs_err="
+            f"{err:.3e} (tol {REDUCED_TOL})")
 
 
 def _tree_numpy(tree):
@@ -293,33 +387,31 @@ def _tree_numpy(tree):
 
 # -- phase 5: serve full-width qwen3-0.6b -------------------------------------
 
-def serve(torch, np, modules):
-    (get_config, params_lib, LLMInstance, profiles, get_scheduler,
-     Request, serve_mod, fa, da) = modules
-    cfg = get_config("qwen3-0.6b")
+def serve(torch, np, m):
+    cfg = m.get_config("qwen3-0.6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype) == (
         28, 1024, 16, 8, 128, 3072, 151936, "bfloat16"), cfg
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = params_lib.init_params(cfg, gen, device="cuda")
-    n_params = params_lib.count_tensor_params(params)
+    params = m.params_lib.init_params(cfg, gen, device="cuda")
+    n_params = m.params_lib.count_tensor_params(params)
     assert n_params == cfg.count_params(), (n_params, cfg.count_params())
     torch.cuda.synchronize()
     log(f"  qwen3-0.6b: {n_params} parameters (bf16) initialised in "
         f"{time.perf_counter() - t0:.2f} s")
-    prof = profiles.V100_LLAMA2_7B
+    prof = m.profiles.V100_LLAMA2_7B
     args = argparse.Namespace(requests=0)
     finite = []
     step_s = {"prefill": [], "decode": []}
 
     def engines():
-        return timed_engines(torch, LLMInstance, get_scheduler, cfg, params,
-                             prof, 1024, step_s, finite)
+        return timed_engines(torch, m, cfg, params, prof, 1024, step_s,
+                             finite)
 
     # warm-up on throwaway engines (cuBLAS handles, allocator)
-    serve_mod.serve_engine(args, engines(), [
-        Request(prompt_tokens=64, decode_tokens=4, rid=10_000 + i)
+    m.serve_mod.serve_engine(args, engines(), [
+        m.Request(prompt_tokens=64, decode_tokens=4, rid=10_000 + i)
         for i in range(2)])
     rng = np.random.default_rng(0)
     reqs = []
@@ -328,21 +420,19 @@ def serve(torch, np, modules):
             p, d = int(rng.integers(990, 1011)), int(rng.integers(40, 65))
         else:
             p, d = int(rng.integers(100, 901)), int(rng.integers(16, 65))
-        reqs.append(Request(prompt_tokens=p, decode_tokens=d, rid=i))
+        reqs.append(m.Request(prompt_tokens=p, decode_tokens=d, rid=i))
     assert sum(r.prompt_tokens + r.decode_tokens > 1024 for r in reqs) == 3
     insts = engines()
     finite.clear()
     for v in step_s.values():
         v.clear()
     torch.cuda.synchronize()
-    fa.launches = da.launches = da.launches_int8 = 0
+    reset_launches(m)
     t0 = time.perf_counter()
-    stats = serve_mod.serve_engine(args, insts, reqs)
+    stats = m.serve_mod.serve_engine(args, insts, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches,
-                "decode_attention": da.launches,
-                "decode_attention_int8": da.launches_int8}
+    launches = read_launches(m)
     admissions = sum(i.n_prefills for i in insts)
     iters = sum(i.n_decode_steps for i in insts)
     assert stats["n"] == len(reqs), stats
@@ -352,7 +442,8 @@ def serve(torch, np, modules):
         launches, admissions)
     assert launches["decode_attention"] == cfg.n_layers * iters > 0, (
         launches, iters)
-    assert launches["decode_attention_int8"] == 0, launches
+    assert launches["decode_attention_int8"] == launches["mamba_scan"] \
+        == 0, launches
     out_tok = sum(r.decode_tokens for r in reqs)
     log(f"  served {len(reqs)} requests ({admissions} admissions, "
         f"{iters} decode iterations, preemptions {stats['preemptions']}) "
@@ -367,7 +458,8 @@ def serve(torch, np, modules):
         f"gang decode step median {dec_ms:.2f} ms; {in_model:.3f} s of the "
         f"{wall:.3f} s wall inside model passes")
     log(f"  virtual clock (profile {prof.name}, not a measurement): {stats}")
-    device = profile_decode(torch, insts[0], dec_ms)
+    device = profile_decode(torch, insts[0], dec_ms,
+                            ("decode_attention", "dec_fwd"))
     return launches, dict(wall_s=wall, output_tokens=out_tok,
                           admissions=admissions, decode_iterations=iters,
                           prefill_median_ms=pre_ms,
@@ -376,14 +468,14 @@ def serve(torch, np, modules):
                           decode_profile=device)
 
 
-def timed_engines(torch, LLMInstance, get_scheduler, cfg, params, prof,
-                  cache_len, step_s, finite, n=2, n_slots=8):
+def timed_engines(torch, m, cfg, params, prof, cache_len, step_s, finite,
+                  n=2, n_slots=8):
     """``n`` engines whose model passes are timed on the host clock
     (synchronised) into ``step_s`` and whose logits are checked for
     shape and collected for a finiteness check in ``finite``."""
-    insts = [LLMInstance(cfg, params, prof, get_scheduler("fcfs"),
-                         n_slots=n_slots, cache_len=cache_len,
-                         instance_id=i, device="cuda") for i in range(n)]
+    insts = [m.LLMInstance(cfg, params, prof, m.get_scheduler("fcfs"),
+                           n_slots=n_slots, cache_len=cache_len,
+                           instance_id=i, device="cuda") for i in range(n)]
     for inst in insts:
         pre, dec = inst.prefill_fn, inst.decode_fn
 
@@ -410,20 +502,22 @@ def timed_engines(torch, LLMInstance, get_scheduler, cfg, params, prof,
     return insts
 
 
-def profile_decode(torch, inst, step_ms: float, steps: int = 5):
-    """Device time of the engine's gang decode step, by kernel, from
-    torch.profiler over a few steps on a served engine's cache (after the
-    counted run), against the served run's median step wall ``step_ms``
-    (the profiler's own start-up makes a wall clock under it useless)."""
+def profile_pass(torch, run, wall_ms: float, what: str, steps: int = 5,
+                 kernel=None):
+    """Device time of a model pass, by kernel, from torch.profiler over
+    ``steps`` calls of ``run`` (after one warm call), against a wall time
+    ``wall_ms`` of the same pass taken without the profiler (whose own
+    start-up makes a wall clock under it useless).  ``kernel`` = (name,
+    a substring of its CUDA function's name) reports that kernel's
+    share."""
     from torch.profiler import ProfilerActivity, profile
-    toks = torch.zeros(inst.n_slots, dtype=torch.long, device="cuda")
     with torch.no_grad():
-        inst.decode_fn(inst.params, cache=inst.cache, tokens=toks)
+        run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
-                inst.decode_fn(inst.params, cache=inst.cache, tokens=toks)
+                run()
             torch.cuda.synchronize()
     # device-side kernel events: their time range is the kernel's run
     by_name = {}
@@ -435,71 +529,109 @@ def profile_decode(torch, inst, step_ms: float, steps: int = 5):
     if not by_name:
         raise RuntimeError("torch.profiler recorded no device kernels")
     rows = [(k, t, n) for k, (t, n) in by_name.items()]
-    busy = sum(r[1] for r in rows) / steps / 1e3            # ms per step
-    attn = sum(r[1] for r in rows if "dec_fwd" in r[0]) / steps / 1e3
+    busy = sum(r[1] for r in rows) / steps / 1e3            # ms per pass
     kernels = sum(r[2] for r in rows) / steps
-    top = sorted(rows, key=lambda r: -r[1])[:6]
-    log(f"  profiled decode step (B=8): device busy {busy:.3f} ms of the "
-        f"served {step_ms:.2f} ms median step (idle "
-        f"{1 - busy / step_ms:.1%}), decode_attention {attn:.3f} ms "
-        f"({attn / busy:.1%} of device time), {kernels:.0f} kernels/step")
-    for key, t, n in top:
-        log(f"    {t / steps / 1e3:8.3f} ms/step  {n // steps:5d}x  "
+    out = dict(device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+               kernels_per_pass=kernels)
+    share = ""
+    if kernel is not None:
+        name, tag = kernel
+        k_ms = sum(r[1] for r in rows if tag in r[0]) / steps / 1e3
+        out[name + "_ms"] = k_ms
+        share = f", {name} {k_ms:.3f} ms ({k_ms / busy:.1%} of device time)"
+    log(f"  profiled {what}: device busy {busy:.3f} ms of {wall_ms:.2f} ms "
+        f"wall (idle {1 - busy / wall_ms:.1%}){share}, {kernels:.0f} "
+        "kernels")
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:6]:
+        log(f"    {t / steps / 1e3:8.3f} ms/pass  {n // steps:5d}x  "
             f"{key[:70]}")
-    return dict(device_busy_ms=busy, idle_share=1 - busy / step_ms,
-                decode_attention_ms=attn, kernels_per_step=kernels)
+    return out
 
 
-# -- phase 6: the gateway over full-width llama-2-7b, int8 KV cache ----------
+def profile_decode(torch, inst, step_ms: float, kernel=None):
+    """The engine's gang decode step on a served engine's cache (after
+    the counted run), against the served run's median step wall."""
+    toks = torch.zeros(inst.n_slots, dtype=torch.long, device="cuda")
+    return profile_pass(
+        torch, lambda: inst.decode_fn(inst.params, cache=inst.cache,
+                                      tokens=toks),
+        step_ms, f"decode step (B={inst.n_slots})", kernel=kernel)
 
-GATEWAY_REQUESTS = 24
+
+def profile_prefill(torch, inst, prompt: int, kernel=None):
+    """One batch-1 prefill of ``prompt`` tokens into slot 0 of a served
+    engine's cache (after the counted run), against its own wall time
+    (synchronised, without the profiler)."""
+    toks = torch.randint(0, inst.cfg.vocab_size, (1, prompt),
+                         generator=torch.Generator().manual_seed(0)).cuda()
+
+    def run():
+        return inst.prefill_fn(inst.params, tokens=toks, cache=inst.cache,
+                               slot=0)
+    with torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = profile_pass(torch, run, wall_ms, f"prefill ({prompt} tokens)",
+                       steps=1, kernel=kernel)
+    out.update(prompt_tokens=prompt, wall_ms=wall_ms)
+    return out
+
+
+# -- phases 6 and 7: the gateway over full-width engines ---------------------
+
 GATEWAY_RATE = 1.0           # arrivals per second of the virtual clock
 
 
-def gateway_stream(np, Request):
-    """One seeded stream: prompts 100-1500 tokens, outputs 16-128,
+def gateway_stream(np, Request, n, max_out, seed, rid0):
+    """One seeded stream: prompts 100-1500 tokens, outputs 16-``max_out``,
     Poisson arrivals; explicit rids so every policy's engines draw the
     same prompt tokens."""
-    rng = np.random.default_rng(6)
-    prompts = rng.integers(100, 1501, GATEWAY_REQUESTS)
-    outputs = rng.integers(16, 129, GATEWAY_REQUESTS)
-    arrivals = np.cumsum(rng.exponential(1 / GATEWAY_RATE,
-                                         GATEWAY_REQUESTS))
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(100, 1501, n)
+    outputs = rng.integers(16, max_out + 1, n)
+    arrivals = np.cumsum(rng.exponential(1 / GATEWAY_RATE, n))
     return [Request(prompt_tokens=int(p), decode_tokens=int(d),
-                    arrival=float(a), tenant="chat", rid=20_000 + i)
+                    arrival=float(a), tenant="chat", rid=rid0 + i)
             for i, (p, d, a) in enumerate(zip(prompts, outputs, arrivals))]
 
 
-def gateway_phase(torch, np, m):
-    """Phase 6: both policies on the same stream through the port's
-    ``serve_gateway``, each on fresh engines, launch counts read around
-    each run."""
-    cfg = dataclasses.replace(m.get_config("llama-2-7b"),
-                              kv_cache_dtype="int8")
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype) == (
-        32, 4096, 32, 32, 128, 11008, 32000, "bfloat16"), cfg
+def init_full_width(torch, m, cfg, name: str, what: str):
+    """Seeded random bf16 weights on the card, counted against the
+    config's analytic count."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = m.params_lib.init_params(cfg, gen, device="cuda")
     n_params = m.params_lib.count_tensor_params(params)
     assert n_params == cfg.count_params(), (n_params, cfg.count_params())
     torch.cuda.synchronize()
-    log(f"  llama-2-7b: {n_params} parameters (bf16, "
-        f"{n_params * 2 / 1e9:.2f} GB) initialised in "
-        f"{time.perf_counter() - t0:.2f} s; int8 KV cache, 2 engines x 8 "
-        "slots x 2048 tokens")
+    log(f"  {name}: {n_params} parameters (bf16, {n_params * 2 / 1e9:.2f} "
+        f"GB) initialised in {time.perf_counter() - t0:.2f} s; {what}")
+    return params, n_params
+
+
+def gateway_runs(torch, np, m, cfg, params, cache_len, policies, stream,
+                 expect, kernels=(None, None)):
+    """Each policy on fresh engines (2 x 8 slots, FCFS, the V100
+    profile) over the same stream through the port's ``serve_gateway``,
+    the launch counts set to 0 just before each run and read just after
+    it, then checked by ``expect(launches, admissions, iterations)``.
+    One decode step and, where ``kernels[1]`` names a kernel, one
+    prefill of the stream's median prompt are profiled per policy."""
     prof = m.profiles.V100_LLAMA2_7B
     args = m.serve_mod.build_parser().parse_args(
         ["--mode", "gateway", "--backend", "engine", "--instances", "2",
-         "--requests", str(GATEWAY_REQUESTS)])
+         "--requests", str(len(stream()))])
     rcfg = m.serve_mod._router_cfg(args)
     finite = []
     step_s = {"prefill": [], "decode": []}
 
     def engines():
-        return timed_engines(torch, m.LLMInstance, m.get_scheduler, cfg,
-                             params, prof, 2048, step_s, finite)
+        return timed_engines(torch, m, cfg, params, prof, cache_len, step_s,
+                             finite)
 
     # warm-up on throwaway engines (cuBLAS handles, allocator)
     m.serve_mod.serve_gateway(
@@ -508,7 +640,7 @@ def gateway_phase(torch, np, m):
                    arrival=0.0) for i in range(2)])
     torch.cuda.empty_cache()
     out, launches_by_policy = {}, {}
-    for name in ("rl", "mixing"):
+    for name in policies:
         insts = engines()
         recorded = []
         if name == "rl":
@@ -524,30 +656,24 @@ def gateway_phase(torch, np, m):
             agent.act = recording_act
             policy = m.RLPolicy(agent, rcfg)
         else:
-            policy = m.make_gateway_policy("mixing", rcfg)
-        reqs = gateway_stream(np, m.Request)
+            policy = m.make_gateway_policy(name, rcfg)
+        reqs = stream()
         finite.clear()
         for v in step_s.values():
             v.clear()
         torch.cuda.synchronize()
-        m.fa.launches = m.da.launches = m.da.launches_int8 = 0
+        reset_launches(m)
         t0 = time.perf_counter()
         stats = m.serve_mod.serve_gateway(args, insts, policy, reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"flash_attention": m.fa.launches,
-                    "decode_attention": m.da.launches,
-                    "decode_attention_int8": m.da.launches_int8}
+        launches = read_launches(m)
         admissions = sum(i.n_prefills for i in insts)
         iters = sum(i.n_decode_steps for i in insts)
         assert stats["n"] == len(reqs), stats
         assert all(r.decoded == r.decode_tokens for r in reqs)
         assert bool(torch.stack(finite).all()), "non-finite logits"
-        assert launches["flash_attention"] == cfg.n_layers * admissions \
-            > 0, (launches, admissions)
-        assert launches["decode_attention_int8"] == cfg.n_layers * iters \
-            > 0, (launches, iters)
-        assert launches["decode_attention"] == 0, launches
+        expect(launches, admissions, iters)
         launches_by_policy[name] = launches
         out_tok = sum(r.decode_tokens for r in reqs)
         dec_ms = statistics.median(step_s["decode"]) * 1e3
@@ -565,20 +691,80 @@ def gateway_phase(torch, np, m):
                 in pct.items()))
         log(f"  [{name}] wall {wall:.3f} s on the card, {out_tok / wall:.1f}"
             f" output tok/s; gang decode step median {dec_ms:.2f} ms, "
-            f"prefill median {pre_ms:.2f} ms")
-        device = profile_decode(torch, insts[0], dec_ms)
+            f"prefill median {pre_ms:.2f} ms (mean prompt "
+            f"{statistics.mean(r.prompt_tokens for r in reqs):.0f} tokens)")
         res = dict(wall_s=wall, output_tokens=out_tok,
                    output_tok_s=out_tok / wall, admissions=admissions,
                    decode_iterations=iters, launches=launches,
                    decode_step_median_ms=dec_ms, prefill_median_ms=pre_ms,
                    virtual_percentiles=pct, stats=stats,
-                   decode_profile=device)
+                   decode_profile=profile_decode(torch, insts[0], dec_ms,
+                                                 kernels[0]))
+        if kernels[1] is not None:
+            prompt = int(statistics.median(r.prompt_tokens for r in reqs))
+            res["prefill_profile"] = profile_prefill(torch, insts[0], prompt,
+                                                     kernels[1])
         if name == "rl":
             res["q_check"] = check_q_on_cpu(torch, np, m, agent, recorded)
         out[name] = res
         del insts
         torch.cuda.empty_cache()
     return launches_by_policy, out
+
+
+def gateway_phase(torch, np, m):
+    """Phase 6: llama-2-7b with int8 KV caches (8 slots x 2048 tokens),
+    24 requests (outputs 16-128) under rl and mixing."""
+    cfg = dataclasses.replace(m.get_config("llama-2-7b"),
+                              kv_cache_dtype="int8")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype) == (
+        32, 4096, 32, 32, 128, 11008, 32000, "bfloat16"), cfg
+    params, _ = init_full_width(torch, m, cfg, "llama-2-7b",
+                                "int8 KV cache, 2 engines x 8 slots x 2048 "
+                                "tokens")
+
+    def expect(launches, admissions, iters):
+        assert launches["flash_attention"] == cfg.n_layers * admissions \
+            > 0, (launches, admissions)
+        assert launches["decode_attention_int8"] == cfg.n_layers * iters \
+            > 0, (launches, iters)
+        assert launches["decode_attention"] == launches["mamba_scan"] \
+            == 0, launches
+    return gateway_runs(
+        torch, np, m, cfg, params, 2048, ("rl", "mixing"),
+        lambda: gateway_stream(np, m.Request, 24, 128, 6, 20_000), expect,
+        (("decode_attention_int8", "dec_fwd"), None))
+
+
+FALCON_MAMBA_PARAMS = 7_272_665_088
+
+
+def mamba_gateway_phase(torch, np, m):
+    """Phase 7: falcon-mamba-7b (attention-free: conv/ssm states per
+    slot, no KV cache), 16 requests (outputs 16-64) under rl."""
+    cfg = m.get_config("falcon-mamba-7b")
+    mc = cfg.mamba
+    assert (cfg.n_layers, cfg.d_model, mc.d_inner, mc.d_state, mc.d_conv,
+            mc.dt_rank, cfg.vocab_size, cfg.d_ff, cfg.tie_embeddings,
+            cfg.layer_pattern, cfg.dtype) == (
+        64, 4096, 8192, 16, 4, 256, 65024, 0, False, ("mamba",),
+        "bfloat16"), cfg
+    params, n_params = init_full_width(
+        torch, m, cfg, "falcon-mamba-7b",
+        "2 engines x 8 slots of conv/ssm state")
+    assert n_params == FALCON_MAMBA_PARAMS, n_params
+
+    def expect(launches, admissions, iters):
+        assert launches["mamba_scan"] == cfg.n_layers * admissions > 0, (
+            launches, admissions)
+        assert iters > 0 and launches["flash_attention"] == launches[
+            "decode_attention"] == launches["decode_attention_int8"] == 0, (
+            launches, iters)
+    return gateway_runs(
+        torch, np, m, cfg, params, 2048, ("rl",),
+        lambda: gateway_stream(np, m.Request, 16, 64, 7, 40_000), expect,
+        (None, ("mamba_scan", "scan_fwd")))
 
 
 def check_q_on_cpu(torch, np, m, agent, recorded):
@@ -624,6 +810,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model as model_lib
     from repro_torch.models import params as params_lib
@@ -639,7 +826,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
-    log(f"[1/6] environment: {gpu}; torch {torch.__version__}, CUDA "
+    log(f"[1/7] environment: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = build.library_path()
@@ -650,46 +837,48 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    log("[2/6] kernels against their plain versions on the card")
-    errs = check_kernels(torch, fa, da, quantize_kv)
+    log("[2/7] kernels against their plain versions on the card")
+    errs = check_kernels(torch, fa, da, ms, quantize_kv)
 
-    log("[3/6] timing (CUDA events, median of "
+    log("[3/7] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
     kv_rng = np.random.default_rng(2)
     kv_lens = [int(x) for x in kv_rng.integers(100, 1025, 7)] + [1100]
     kv_lens_int8 = [int(x) for x in kv_rng.integers(100, 2049, 7)] + [2100]
-    times = time_kernels(torch, fa, da, quantize_kv, prompt_len=512,
+    times = time_kernels(torch, fa, da, ms, quantize_kv, prompt_len=512,
                          kv_lens=kv_lens, kv_lens_int8=kv_lens_int8)
 
-    log("[4/6] reduced model: card (kernels) against CPU (plain)")
+    log("[4/7] reduced models: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
 
-    log("[5/6] serve full-width qwen3-0.6b through serve_engine")
-    launches, served = serve(torch, np, (
-        get_config, params_lib, LLMInstance, profiles, get_scheduler,
-        Request, serve_mod, fa, da))
-    torch.cuda.empty_cache()
-
-    log("[6/6] the gateway over full-width llama-2-7b (int8 KV cache) "
-        "through serve_gateway, policies rl and mixing")
     mods = argparse.Namespace(
         get_config=get_config, params_lib=params_lib, profiles=profiles,
         serve_mod=serve_mod, LLMInstance=LLMInstance,
         get_scheduler=get_scheduler, make_gateway_policy=make_gateway_policy,
-        RLPolicy=RLPolicy, Request=Request, rl=rl, dqn=dqn, fa=fa, da=da)
+        RLPolicy=RLPolicy, Request=Request, rl=rl, dqn=dqn, fa=fa, da=da,
+        ms=ms)
+    log("[5/7] serve full-width qwen3-0.6b through serve_engine")
+    launches, served = serve(torch, np, mods)
+    torch.cuda.empty_cache()
+
+    log("[6/7] the gateway over full-width llama-2-7b (int8 KV cache) "
+        "through serve_gateway, policies rl and mixing")
     gw_launches, gateway = gateway_phase(torch, np, mods)
+    torch.cuda.empty_cache()
+
+    log("[7/7] the gateway over full-width falcon-mamba-7b through "
+        "serve_gateway, policy rl")
+    mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods)
     # each path's own counts (reset before it, read after it): phase 5's
-    # serve_engine and phase 6's gateway under each policy
+    # serve_engine, phase 6's gateway under each policy, phase 7's
     by_path = {"serve_engine": launches,
                "gateway_rl": gw_launches["rl"],
-               "gateway_mixing": gw_launches["mixing"]}
+               "gateway_mixing": gw_launches["mixing"],
+               "gateway_mamba_rl": mamba_launches["rl"]}
     log(f"  launches per serving path: {by_path}")
 
     kernels = []
-    for name, src, rep in (("flash_attention", FA_SOURCE, FA_REPLACES),
-                           ("decode_attention", DA_SOURCE, DA_REPLACES),
-                           ("decode_attention_int8", DA_SOURCE,
-                            DA8_REPLACES)):
+    for name, src, rep in KERNELS:
         t = times[name]
         per_path = {p: c[name] for p, c in by_path.items()
                     if c.get(name)}
@@ -704,7 +893,7 @@ def main(argv=None) -> int:
                         "library_ms": t["library_ms"]})
     log("kernels: " + ", ".join(
         f"{k['name']} err={k['max_abs_err']:.3e} {k['ms']:.4f} ms "
-        f"(plain {k['plain_ms']:.4f}, sdpa {k['library_ms']:.4f}, bound "
+        f"(plain {k['plain_ms']:.4f}, library {k['library_ms']}, bound "
         f"{k['bound_ms']:.4f} {k['bound_by']}) launches={k['launches']}"
         for k in kernels))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -716,7 +905,8 @@ def main(argv=None) -> int:
                        "cuda": torch.version.cuda, "kernels": kernels,
                        "timing_shapes": {n: t["shape"]
                                          for n, t in times.items()},
-                       "serve": served, "gateway": gateway}, f, indent=1,
+                       "serve": served, "gateway": gateway,
+                       "gateway_mamba": mamba_gateway}, f, indent=1,
                       default=str)
     log(gpu)
     log(json.dumps({"kernels": kernels}))

@@ -40,6 +40,10 @@ SIGNATURES = {
     # q, k, v, k_scale, v_scale, kv_len, o, B, S, H, KV, hd, dtype, stream
     "repro_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _P),
+    # xc, dt, b, c, a_log, d, y, h_final, B, S, di, ds, xc/dt/b/c dtype,
+    # stream
+    "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P),
 }
 
 

@@ -1,9 +1,11 @@
-"""Model assembly for attention-only decoders (PyTorch twin of
-``repro.models.model``).
+"""Model assembly for decoders of GQA attention and Mamba-1 layers
+(PyTorch twin of ``repro.models.model``).
 
 Two serving entry points, with the reference's cache layout
-(``layers[pos][name]`` of shape ``[n_periods, B, cache_len, KV, hd]``
-plus ``pos [B]``):
+(``layers[pos][name]``: ``k``/``v`` of shape
+``[n_periods, B, cache_len, KV, hd]`` for attention layers, ``conv``
+``[n_periods, B, d_conv-1, d_inner]`` and ``ssm``
+``[n_periods, B, d_inner, d_state]`` for mamba layers; plus ``pos [B]``):
 
   prefill(params, cfg, tokens, cache_len, cache=None, slot=0)
       -> (last_logits [B,V], cache)
@@ -11,10 +13,10 @@ plus ``pos [B]``):
 
 PyTorch runs eagerly, so the stacked layers are walked with a Python loop
 instead of ``lax.scan``.  Caches are updated in place: prefill writes the
-prompt straight into rows ``slot:slot+B`` of a caller's cache (the
-engine's slot insert), where the reference builds a padded cache and
-copies it in.  Layer kinds other than attention (mamba, mla, moe, cross)
-raise NotImplementedError until a later slice of the port.
+prompt's K/V and SSM states straight into rows ``slot:slot+B`` of a
+caller's cache (the engine's slot insert), where the reference builds a
+padded cache and copies it in.  MLA, MoE and cross-attention raise
+NotImplementedError until a later slice of the port.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import ops
 from repro_torch.models.params import check_supported, torch_dtype
 
@@ -46,10 +49,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     check_supported(cfg)
     dev = resolve_device(device)
     n, kv, hd = cfg.n_periods, cfg.n_kv_heads, cfg.head_dim
+    dtype = torch_dtype(cfg.dtype)
     shape = (n, batch, cache_len, kv, hd)
     layers = []
-    for _ in range(cfg.period):
-        if cfg.kv_cache_dtype == "int8":
+    for pos in range(cfg.period):
+        if cfg.layer_kind(pos) == "mamba":
+            m = cfg.mamba
+            entry = {
+                "conv": torch.zeros((n, batch, m.d_conv - 1, m.d_inner),
+                                    dtype=dtype, device=dev),
+                "ssm": torch.zeros((n, batch, m.d_inner, m.d_state),
+                                   dtype=dtype, device=dev)}
+        elif cfg.kv_cache_dtype == "int8":
             entry = {
                 "k": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -58,7 +69,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                 "v_scale": torch.ones(shape[:-1], dtype=torch.bfloat16,
                                       device=dev)}
         else:
-            dtype = torch_dtype(cfg.dtype)
             entry = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                      "v": torch.zeros(shape, dtype=dtype, device=dev)}
         layers.append(entry)
@@ -73,6 +83,21 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _mamba(p: Dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
+           entry: Dict, slot: int) -> torch.Tensor:
+    """A mamba layer; its conv and SSM states are written in place into
+    rows ``slot:slot+B`` (prefill) or all rows (decode) of ``entry``."""
+    if mode == "prefill":
+        y, states = mamba_mod.mamba_seq(p, cfg, h)
+        rows = slice(slot, slot + h.shape[0])
+    else:
+        y, states = mamba_mod.mamba_decode(p, cfg, h, entry)
+        rows = slice(None)
+    for name, t in states.items():
+        entry[name][rows] = t
+    return y
+
+
 def _run_stack(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, mode: str, cache: Dict,
                slot: int = 0) -> torch.Tensor:
@@ -81,7 +106,9 @@ def _run_stack(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             p = _index(params["layers"][pos], i)
             entry = _index(cache["layers"][pos], i)
             h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            if mode == "prefill":
+            if "mamba" in p:
+                y = _mamba(p["mamba"], cfg, h, mode, entry, slot)
+            elif mode == "prefill":
                 y = attn.self_attention_prefill(p["attn"], cfg, h,
                                                 positions, entry, slot)
             else:
@@ -126,10 +153,11 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     if cache is None:
         cache = init_cache(cfg, b, cache_len or cfg.max_seq_len,
                            device=tokens.device)
-    cache_len = cache["layers"][0]["k"].shape[2]
-    if s > cache_len:
+    # only attention caches have a length; an SSM state takes any prompt
+    lens = [e["k"].shape[2] for e in cache["layers"] if "k" in e]
+    if lens and s > lens[0]:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of "
-                         f"{cache_len}")
+                         f"{lens[0]}")
     x = _embed(params, cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     x = _run_stack(params, cfg, x, positions, "prefill", cache, slot)

@@ -21,19 +21,19 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 
-_LATER = ("the PyTorch port so far serves attention-only decoders "
-          "(layer pattern 'attn', GQA attention, dense FFN); {what} "
-          "comes with a later slice of the port")
+_LATER = ("the PyTorch port so far serves decoders of GQA attention and "
+          "Mamba-1 layers with dense FFNs; {what} comes with a later "
+          "slice of the port")
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for layer kinds not yet ported."""
     kinds = set(cfg.layer_pattern)
-    if kinds - {"attn"}:
+    if kinds - {"attn", "mamba"}:
         raise NotImplementedError(_LATER.format(
-            what=f"layer kind(s) {sorted(kinds - {'attn'})} (mamba / "
-            "cross-attention)"))
-    if cfg.attention != "gqa":
+            what=f"layer kind(s) {sorted(kinds - {'attn', 'mamba'})} "
+            "(cross-attention)"))
+    if "attn" in kinds and cfg.attention != "gqa":
         raise NotImplementedError(_LATER.format(
             what=f"attention {cfg.attention!r} (mla)"))
     if any(cfg.moe_pattern) or cfg.moe is not None or cfg.dense_first_layer:
@@ -76,6 +76,26 @@ def _init_ffn(gen, cfg, n, dtype, device) -> Dict[str, Any]:
     return p
 
 
+def _init_mamba(gen, cfg, n, dtype, device) -> Dict[str, Any]:
+    d, m, dtr = cfg.d_model, cfg.mamba, cfg.dt_rank
+    di, ds, dc = m.d_inner, m.d_state, m.d_conv
+    a = torch.arange(1, ds + 1, dtype=torch.float32,
+                     device=device)[None, :].repeat(di, 1)
+    return {
+        "in_proj": _dense(gen, (n, d, 2 * di), dtype, device, fan_in=d),
+        "conv_w": _dense(gen, (n, dc, di), dtype, device, fan_in=dc),
+        "conv_b": torch.zeros((n, di), dtype=dtype, device=device),
+        "x_proj": _dense(gen, (n, di, dtr + 2 * ds), dtype, device,
+                         fan_in=di),
+        "dt_proj": _dense(gen, (n, dtr, di), dtype, device, fan_in=dtr),
+        # softplus^-1(0.01)
+        "dt_bias": torch.full((n, di), -4.6, dtype=dtype, device=device),
+        "A_log": torch.log(a)[None].repeat(n, 1, 1),
+        "D": torch.ones((n, di), dtype=torch.float32, device=device),
+        "out_proj": _dense(gen, (n, di, d), dtype, device, fan_in=di),
+    }
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Dict[str, Any]:
     """Initialize the full parameter tree on ``device`` (default: the
@@ -89,10 +109,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "embed": _dense(generator, (cfg.vocab_size, cfg.d_model), dtype,
                         dev, fan_in=cfg.d_model)}
     layers = []
-    for _ in range(cfg.period):
+    for pos in range(cfg.period):
         layer = {"ln1": torch.zeros((n, cfg.d_model), dtype=dtype,
-                                    device=dev),
-                 "attn": _init_attn(generator, cfg, n, dtype, dev)}
+                                    device=dev)}
+        if cfg.layer_kind(pos) == "mamba":
+            layer["mamba"] = _init_mamba(generator, cfg, n, dtype, dev)
+        else:
+            layer["attn"] = _init_attn(generator, cfg, n, dtype, dev)
+        # the reference's has_ffn without MoE: pure-SSM configs
+        # (d_ff == 0, falcon-mamba) have no FFN sub-block
         if cfg.d_ff > 0:
             layer["ln2"] = torch.zeros((n, cfg.d_model), dtype=dtype,
                                        device=dev)

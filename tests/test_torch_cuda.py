@@ -11,6 +11,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.mamba_scan import ops as ms
 from repro_torch.models import model as model_lib
 from repro_torch.models import params as params_lib
 
@@ -130,12 +131,82 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         fa.flash_attention(q.transpose(1, 2), q, q)
 
 
+def _scan_inputs(g, dev, b, s, di, ds, act_dtype):
+    """xc/b/c in ``act_dtype``, f32 dt (softplus-positive), a_log and d
+    as the model holds them (f32)."""
+    xc = _rand(g, dev, act_dtype, b, s, di)
+    dt = (torch.nn.functional.softplus(torch.randn(
+        (b, s, di), generator=g, device=dev)) * 0.1).contiguous()
+    bm = _rand(g, dev, act_dtype, b, s, ds)
+    cm = _rand(g, dev, act_dtype, b, s, ds)
+    a_log = torch.log(torch.randn((di, ds), generator=g,
+                                  device=dev).abs() + 0.5)
+    return xc, dt, bm, cm, a_log, torch.ones(di, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba_scan_matches_plain(cuda_device, act_dtype):
+    """S=1, a ragged S and falcon-mamba-7b's width (di=8192, ds=16), plus
+    the reduced config's d_state 8 and d_state 4; y within 1e-4 in f32
+    (tests/test_kernels.py's bound) and 2e-2 with bf16 xc/b/c, h_final
+    within 1e-4 of its scale."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, s, di, ds in ((2, 1, 256, 16), (2, 50, 384, 16),
+                         (1, 300, 8192, 16), (3, 37, 128, 8),
+                         (1, 64, 200, 4)):
+        args = _scan_inputs(g, cuda_device, b, s, di, ds, act_dtype)
+        before = ms.launches
+        y, hf = ms.mamba_scan(*args)
+        assert ms.launches == before + 1
+        assert y.dtype == act_dtype and hf.dtype == torch.float32
+        y_ref, h_ref = ms.mamba_scan_plain(*args)
+        tol = 1e-4 if act_dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol,
+                                   atol=tol)
+        scale = float(h_ref.abs().max())
+        torch.testing.assert_close(hf, h_ref, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1.0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    args = _scan_inputs(g, cuda_device, 1, 8, 64, 8, torch.float32)
+    xc, dt, bm, cm, a_log, d = args
+    with pytest.raises(ValueError, match="on cpu"):
+        ms.mamba_scan(xc, dt.cpu(), bm, cm, a_log, d)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ms.mamba_scan(xc.half(), dt, bm, cm, a_log, d)
+    with pytest.raises(TypeError, match="a_log must be float32"):
+        ms.mamba_scan(xc, dt, bm, cm, a_log.to(torch.bfloat16), d)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mamba_scan(xc.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                      bm, cm, a_log, d)
+    with pytest.raises(ValueError, match="shapes"):
+        ms.mamba_scan(xc, dt[:, :4].contiguous(), bm, cm, a_log, d)
+    b32 = _rand(g, cuda_device, torch.float32, 1, 8, 32)
+    with pytest.raises(ValueError, match="d_state 32"):
+        ms.mamba_scan(xc, dt, b32, b32, a_log.repeat(1, 4).contiguous(), d)
+
+
 @pytest.mark.cuda
 def test_cuda_model_matches_cpu(cuda_device):
     """Reduced qwen3-0.6b (head_dim 32, f32): prefill + 4 decode steps
     (two past the cache) on the card through the kernels, against the
-    CPU's plain versions; 1e-3 covers the card's other summation order."""
-    cfg = get_config("qwen3-0.6b").reduced(head_dim=32)
+    CPU's plain versions; 1e-3 covers the card's other summation order.
+    Reduced falcon-mamba (prefill through the scan kernel) likewise."""
+    _model_on_card_vs_cpu(cuda_device, get_config("qwen3-0.6b").reduced(
+        head_dim=32))
+    before = ms.launches
+    cfg = get_config("falcon-mamba-7b").reduced()
+    _model_on_card_vs_cpu(cuda_device, cfg)
+    assert ms.launches == before + cfg.n_layers
+
+
+def _model_on_card_vs_cpu(cuda_device, cfg):
     p_cpu = params_lib.init_params(cfg, torch.Generator().manual_seed(0),
                                    device="cpu")
     p_gpu = params_lib.from_reference(

@@ -69,9 +69,14 @@ class _Recorder:
             setattr(inst, attr, wrapped)
 
 
-def _engines(capacity=60, speed=1.0):
-    cfg_ref = REF_REGISTRY["qwen3-0.6b"].reduced()
-    cfg_pt = get_config("qwen3-0.6b").reduced()
+def _engines(capacity=60, speed=1.0, arch="qwen3-0.6b"):
+    cfg_ref = REF_REGISTRY[arch].reduced()
+    cfg_pt = get_config(arch).reduced()
+    if cfg_ref.mamba is not None:
+        # the reference's scans assert S % min(chunk, S) == 0; a chunk
+        # of the cache length takes every prompt here (same function)
+        cfg_ref = dataclasses.replace(cfg_ref, mamba=dataclasses.replace(
+            cfg_ref.mamba, chunk=CACHE_LEN))
     pr = ref_params.init_params(jax.random.PRNGKey(0), cfg_ref)
     pt = pt_params.from_reference(jax.tree.map(np.asarray, pr),
                                   device="cpu")
@@ -111,9 +116,33 @@ def _drive(inst, reqs, chaos: bool):
     raise AssertionError("engine did not drain")
 
 
+def _assert_cache_close(ref, port):
+    want = jax.tree.map(np.asarray, ref.cache)
+    np.testing.assert_array_equal(port.cache["pos"].numpy(), want["pos"])
+    for e_pt, e_ref in zip(port.cache["layers"], want["layers"]):
+        assert set(e_pt) == set(e_ref)
+        for name in e_ref:
+            np.testing.assert_allclose(e_pt[name].numpy(), e_ref[name],
+                                       rtol=TOL, atol=TOL, err_msg=name)
+
+
 @pytest.mark.parametrize("chaos", [False, True])
 def test_engine_matches_reference_in_lockstep(chaos):
-    ref, port = _engines(speed=1.5 if chaos else 1.0)
+    _lockstep(chaos, "qwen3-0.6b")
+
+
+@pytest.mark.parametrize("chaos", [False, True])
+def test_mamba_engine_matches_reference_in_lockstep(chaos):
+    """Reduced falcon-mamba: slot inserts, gang decode of empty slots,
+    preemption and fail/recover/steal over the conv/ssm cache."""
+    _lockstep(chaos, "falcon-mamba-7b")
+
+
+def _lockstep(chaos, arch):
+    """Stamps, logits, greedy tokens and the whole cache (K/V, or the
+    conv/ssm states) after every step, through slot inserts, preemption
+    and, with ``chaos``, fail/recover/steal."""
+    ref, port = _engines(speed=1.5 if chaos else 1.0, arch=arch)
     rec_ref, rec_pt = _Recorder(ref), _Recorder(port)
     ref_reqs = _requests(ref_request)
     pt_reqs = _requests(pt_request)
@@ -131,6 +160,7 @@ def test_engine_matches_reference_in_lockstep(chaos):
             np.testing.assert_array_equal(ref.next_tokens[active],
                                           port.next_tokens[active])
             assert ref.clock == port.clock
+            _assert_cache_close(ref, port)
     assert len(port.completed) == len(pt_reqs)
     assert max(r.prompt_tokens + r.decode_tokens for r in pt_reqs) \
         > CACHE_LEN
