@@ -2,7 +2,11 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU.
 
-  python3 chip_smoke.py [--json PATH]
+  python3 chip_smoke.py [--json PATH] [--kernels-only]
+
+``--kernels-only`` stops after phase 3.  The script imports the port
+from the ``src`` beside it; to time another commit's kernels with this
+script, copy it into that commit's checkout and run it there.
 
 Phases, in order; any failure raises and the process exits non-zero:
   1. environment: the card's name and power limit (nvidia-smi), torch and
@@ -10,17 +14,24 @@ Phases, in order; any failure raises and the process exits non-zero:
      sources in this checkout (``build/repro_torch_kernels/``);
   2. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes, in bf16 (tolerance 2e-2) and f32 (2e-5); the
+     bf16 flash kernel also at llama-2-7b's heads (H=KV=32, hd=128) across
+     its 64-row tiles' edges, after a cached prefix and non-causal; the
      int8-cache decode mode at llama-2-7b's (B=8, S=2048, H=KV=32,
-     hd=128, bf16 q, 2e-2); the selective scan at falcon-mamba-7b's
+     hd=128, bf16 q, 2e-2), kv_len across its split's edges; the
+     selective scan at falcon-mamba-7b's
      (B=1, S=1024, di=8192, ds=16, bf16 xc/b/c, f32 dt: y within 2e-2,
      the f32 final state within 1e-4 of its scale) and at reduced f32
      shapes with a ragged S and S=1 (1e-4);
   3. timing with CUDA events (median of 30 runs after warm-up, L2 flushed
-     before each run): kernel, plain version, and one PyTorch library call
+     before each run; ``ms`` from the call's enqueue on, ``device_ms``
+     with a spin kernel ahead of the start event that keeps the card busy
+     past the host's enqueue): kernel, plain version, and one PyTorch
+     library call
      of the same function (``scaled_dot_product_attention``, a yardstick
      only; for the int8 mode on the cache dequantized beforehand, the
      dequantization not timed; no single PyTorch call computes a
-     selective scan), beside the least time the card could take;
+     selective scan), beside the least time the card could take; flash
+     at qwen3-0.6b's prefill shape and at llama-2-7b's;
   4. small reduced models (qwen3-0.6b, falcon-mamba-7b) on the card
      (kernels) against the same models on the CPU (plain versions),
      logits within 1e-3;
@@ -34,7 +45,7 @@ Phases, in order; any failure raises and the process exits non-zero:
      ``serve_gateway`` under the RL policy (a seeded decomposed
      Q-network on the card, held against the same network on the CPU)
      and under the mixing heuristic, with the launch counts read around
-     each run;
+     each run, one decode step and one prefill profiled per policy;
   7. the gateway over full-width falcon-mamba-7b (64 Mamba-1 layers,
      bf16, seeded random weights) on two engines x 8 slots, one seeded
      stream of 16 requests served through ``serve_gateway`` under the RL
@@ -65,6 +76,7 @@ Q_TOL = 1e-5                 # RL Q-values, card against CPU (TF32 off)
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 TIMING_RUNS = 30
+SPIN_CYCLES = 200_000        # ~0.1 ms at the H100's clock (device_ms)
 
 SCAN_TOL = 1e-4              # tests/test_kernels.py's bound for the scan
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
@@ -87,6 +99,21 @@ KERNELS = (
 LLAMA_DECODE = dict(b=8, s=2048, h=32, kvh=32, hd=128)
 # falcon-mamba-7b's selective scan in a 1024-token prefill
 FALCON_SCAN = dict(b=1, s=1024, di=8192, ds=16)
+# bf16 flash at llama-2-7b's heads, (Sq, Skv, q_offset, causal): Sq across
+# the 64-row q tiles' edges, a chunk after a cached prefix, non-causal
+FLASH_LLAMA_CASES = ((1, 1, 0, True), (63, 63, 0, True), (64, 64, 0, True),
+                     (65, 65, 0, True), (1017, 1017, 0, True),
+                     (1500, 1500, 0, True), (100, 400, 300, True),
+                     (200, 333, 0, False))
+# int8 decode kv_len (B=8, S=2048): 1, S and past S, and the edges of the
+# kernel's split (8 blocks of ceil(len/8) positions rounded up to 64): one
+# block exactly full (64), the next taking one row (65), ..., all 8 full
+# (512, 1024) and the next granule (513, 1025); 0 masks every position
+INT8_LENS = ([1, 2, 37, 500, 1000, 2047, 2048, 2100],
+             [0, 63, 64, 65, 255, 256, 257, 511],
+             [512, 513, 575, 576, 577, 1024, 1025, 2049])
+# llama-2-7b's prefill attention (phase 3's second flash shape)
+LLAMA_PREFILL = dict(s=1024, h=32, kvh=32, hd=128)
 
 
 def log(*a):
@@ -145,17 +172,28 @@ def check_kernels(torch, fa, da, ms, quantize_kv):
         compare("decode_attention", da.decode_attention(q, k, v, lens),
                 da.decode_attention_plain(q, k, v, lens), tol,
                 f"decode {dtype} B=8 S=1024 kv_len={lens.tolist()}")
+    # bf16 flash at llama-2-7b's heads: Sq across the 64-row q tiles'
+    # edges, a query chunk after a cached prefix, and non-causal
+    for sq, skv, off, causal in FLASH_LLAMA_CASES:
+        q = rand((1, sq, 32, 128), torch.bfloat16)
+        k, v = (rand((1, skv, 32, 128), torch.bfloat16) for _ in range(2))
+        compare("flash_attention",
+                fa.flash_attention(q, k, v, causal=causal, q_offset=off),
+                fa.flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=off), BF16_TOL,
+                f"flash bf16 H=KV=32 Sq={sq} Skv={skv} q_offset={off} "
+                f"causal={causal}")
     ld = LLAMA_DECODE
     q = rand((ld["b"], 1, ld["h"], ld["hd"]), torch.bfloat16)
     (k, ks), (v, vs) = (int8_cache(torch, quantize_kv, g, **ld)
                         for _ in range(2))
-    lens = torch.tensor([1, 2, 37, 500, 1000, 2047, 2048, 2100],
-                        dtype=torch.int32, device=dev)
-    compare("decode_attention_int8",
-            da.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs),
-            da.decode_attention_plain(q, k, v, lens, ks, vs), BF16_TOL,
-            f"decode int8 cache, bf16 q, B=8 S=2048 H=KV=32 hd=128 "
-            f"kv_len={lens.tolist()}")
+    for lens in INT8_LENS:
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        compare("decode_attention_int8",
+                da.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs),
+                da.decode_attention_plain(q, k, v, lens, ks, vs), BF16_TOL,
+                f"decode int8 cache, bf16 q, B=8 S=2048 H=KV=32 hd=128 "
+                f"kv_len={lens.tolist()}")
     fs = FALCON_SCAN
     for (b, s, di, ds), act in (((fs["b"], fs["s"], fs["di"], fs["ds"]),
                                  torch.bfloat16),
@@ -205,14 +243,20 @@ def int8_cache(torch, quantize_kv, g, b, s, kvh, hd, **_):
 
 # -- phase 3: timing ----------------------------------------------------------
 
-def time_ms(torch, fn, flush) -> float:
+def time_ms(torch, fn, flush, spin: bool = False) -> float:
     """Median milliseconds of one call, CUDA events, L2 flushed before
-    each run, after warm-up."""
+    each run, after warm-up.  With ``spin``, a spin kernel of ~0.1 ms
+    ahead of the start event keeps the card busy while the host enqueues
+    the call, so the time is the card's alone, without the wrapper's
+    host-side launch path; without it, the events also enclose whatever
+    part of that enqueue outlasts the flush."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMING_RUNS):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -251,38 +295,46 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
     def rand(*shape):
         return torch.randn(shape, generator=g, device=dev).to(bf)
 
-    # prefill: B=1, Sq=Skv=prompt_len, H=16, KV=8, hd=128
-    s, h, kvh, hd = prompt_len, 16, 8, 128
-    q, k, v = rand(1, s, h, hd), rand(1, s, kvh, hd), rand(1, s, kvh, hd)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), flush)
-    plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), flush)
-    lib = time_ms(torch, lambda: sdpa(torch, qt, kt, vt, is_causal=True),
-                  flush)
-    pairs = s * (s + 1) // 2                       # causal (q, k) pairs
-    b_ms, b_by = bound(4 * hd * h * pairs, 2 * (2 * s * h * hd
-                                                + 2 * s * kvh * hd))
-    out["flash_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  shape=f"B=1 Sq=Skv={s} H=16 KV=8 hd=128 "
-                                  "bf16 causal")
+    def timed(fn):
+        """(ms, device_ms) of fn"""
+        return (time_ms(torch, fn, flush),
+                time_ms(torch, fn, flush, spin=True))
+
+    def prefill(s, h, kvh, hd):
+        """flash at B=1, Sq=Skv=s, bf16, causal"""
+        q, k, v = rand(1, s, h, hd), rand(1, s, kvh, hd), rand(1, s, kvh, hd)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms, dev_ms = timed(lambda: fa.flash_attention(q, k, v))
+        plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
+                        flush)
+        lib, lib_dev = timed(lambda: sdpa(torch, qt, kt, vt, is_causal=True))
+        pairs = s * (s + 1) // 2                   # causal (q, k) pairs
+        b_ms, b_by = bound(4 * hd * h * pairs, 2 * (2 * s * h * hd
+                                                    + 2 * s * kvh * hd))
+        return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                    library_device_ms=lib_dev, bound_ms=b_ms,
+                    bound_by=b_by, shape=f"B=1 Sq=Skv={s} H={h} KV={kvh} "
+                    f"hd={hd} bf16 causal")
+
+    # qwen3-0.6b's prefill (the record's main fields); llama-2-7b's last
+    out["flash_attention"] = prefill(prompt_len, 16, 8, 128)
     # decode: B=8, S=1024, H=16, KV=8, hd=128, this run's kv_len
-    b, s = len(kv_lens), 1024
+    b, s, h, kvh, hd = len(kv_lens), 1024, 16, 8, 128
     q = rand(b, 1, h, hd)
     k, v = rand(b, s, kvh, hd), rand(b, s, kvh, hd)
     lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[
         :, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_ms(torch, lambda: da.decode_attention(q, k, v, lens), flush)
+    ms, dev_ms = timed(lambda: da.decode_attention(q, k, v, lens))
     plain = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lens),
                     flush)
-    lib = time_ms(torch, lambda: sdpa(torch, qt, kt, vt, attn_mask=mask),
-                  flush)
+    lib, lib_dev = timed(lambda: sdpa(torch, qt, kt, vt, attn_mask=mask))
     valid = sum(min(max(n, 0), s) for n in kv_lens)
     b_ms, b_by = bound(4 * hd * h * valid,
                        2 * (2 * valid * kvh * hd + 2 * b * h * hd) + 4 * b)
-    out["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+    out["decode_attention"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                   library_ms=lib, library_device_ms=lib_dev,
                                    bound_ms=b_ms, bound_by=b_by,
                                    shape=f"B={b} S={s} H=16 KV=8 hd=128 "
                                    f"bf16 kv_len={kv_lens}")
@@ -299,19 +351,19 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
     kd = (k.float() * ks.float()[..., None]).to(bf)
     vd = (v.float() * vs.float()[..., None]).to(bf)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
-    ms = time_ms(torch, lambda: da.decode_attention(
-        q, k, v, lens, k_scale=ks, v_scale=vs), flush)
+    ms, dev_ms = timed(lambda: da.decode_attention(
+        q, k, v, lens, k_scale=ks, v_scale=vs))
     plain = time_ms(torch, lambda: da.decode_attention_plain(
         q, k, v, lens, ks, vs), flush)
-    lib = time_ms(torch, lambda: sdpa(torch, qt, kt, vt, attn_mask=mask),
-                  flush)
+    lib, lib_dev = timed(lambda: sdpa(torch, qt, kt, vt, attn_mask=mask))
     valid = sum(min(max(n, 0), s) for n in kv_lens_int8)
     # int8 K and V, bf16 scales of both, bf16 q and out, int32 kv_len
     b_ms, b_by = bound(4 * hd * h * valid,
                        2 * valid * kvh * hd + 2 * 2 * valid * kvh
                        + 2 * 2 * b * h * hd + 4 * b)
     out["decode_attention_int8"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+        library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
         shape=f"B={b} S={s} H=KV={h} hd={hd} int8 cache bf16 q "
         f"kv_len={kv_lens_int8}; library = sdpa on the pre-dequantized "
         "bf16 cache")
@@ -319,7 +371,7 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
     fs = FALCON_SCAN
     b, s, di, ds = fs["b"], fs["s"], fs["di"], fs["ds"]
     args = scan_inputs(torch, g, b, s, di, ds, bf)
-    ms = time_ms(torch, lambda: scan.mamba_scan(*args), flush)
+    ms, dev_ms = timed(lambda: scan.mamba_scan(*args))
     plain = time_ms(torch, lambda: scan.mamba_scan_plain(*args), flush)
     # bf16 xc, b, c and y; f32 dt, a_log, d and h_final
     nbytes = (2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds
@@ -327,15 +379,19 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
     # per (step, channel, state): dt*a, exp, the state's multiply-add
     # (2), dt*x*B, h*C summed (2); per (step, channel): dt*x, D*x + sum
     b_ms, b_by = bound(b * s * di * (7 * ds + 3), nbytes, PEAK_F32_FLOPS)
-    out["mamba_scan"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+    out["mamba_scan"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                             library_ms=None, library_device_ms=None,
                              bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                              shape=f"B={b} S={s} di={di} ds={ds}, bf16 "
                              "xc/b/c/y, f32 dt/a_log/d/h_final; no library"
                              " call computes a selective scan")
+    out["flash_attention_llama"] = prefill(**LLAMA_PREFILL)
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+               else f"{r['library_ms']:.4f} ms (device "
+               f"{r['library_device_ms']:.4f} ms)")
+        log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     del flush
@@ -542,9 +598,12 @@ def profile_pass(torch, run, wall_ms: float, what: str, steps: int = 5,
     log(f"  profiled {what}: device busy {busy:.3f} ms of {wall_ms:.2f} ms "
         f"wall (idle {1 - busy / wall_ms:.1%}){share}, {kernels:.0f} "
         "kernels")
-    for key, t, n in sorted(rows, key=lambda r: -r[1])[:6]:
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    for key, t, n in top:
         log(f"    {t / steps / 1e3:8.3f} ms/pass  {n // steps:5d}x  "
             f"{key[:70]}")
+    out["top_kernels"] = [(key[:70], t / steps / 1e3, n // steps)
+                          for key, t, n in top]
     return out
 
 
@@ -734,7 +793,8 @@ def gateway_phase(torch, np, m):
     return gateway_runs(
         torch, np, m, cfg, params, 2048, ("rl", "mixing"),
         lambda: gateway_stream(np, m.Request, 24, 128, 6, 20_000), expect,
-        (("decode_attention_int8", "dec_fwd"), None))
+        (("decode_attention_int8", "dec_int8_split"),
+         ("flash_attention", "fa_fwd_tc")))
 
 
 FALCON_MAMBA_PARAMS = 7_272_665_088
@@ -789,10 +849,18 @@ def check_q_on_cpu(torch, np, m, agent, recorded):
                 same_action=same)
 
 
+def write_json(path, obj):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1, default=str)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None,
                     help="also write the full results to this JSON file")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (kernels checked and timed)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -847,6 +915,13 @@ def main(argv=None) -> int:
     kv_lens_int8 = [int(x) for x in kv_rng.integers(100, 2049, 7)] + [2100]
     times = time_kernels(torch, fa, da, ms, quantize_kv, prompt_len=512,
                          kv_lens=kv_lens, kv_lens_int8=kv_lens_int8)
+    if args.kernels_only:
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases 1-3 of "
+            f"the port in {SRC})")
+        if args.json:
+            write_json(args.json, {"gpu": gpu, "src": SRC,
+                                   "max_abs_err": errs, "times": times})
+        return 0
 
     log("[4/7] reduced models: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
@@ -878,19 +953,23 @@ def main(argv=None) -> int:
     log(f"  launches per serving path: {by_path}")
 
     kernels = []
-    for name, src, rep in KERNELS:
+    for name, source, rep in KERNELS:
         t = times[name]
         per_path = {p: c[name] for p, c in by_path.items()
                     if c.get(name)}
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep,
-                        "launches": sum(per_path.values()),
-                        "launches_by_path": per_path,
-                        "max_abs_err": errs[name], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": rep, "launches": sum(per_path.values()),
+               "launches_by_path": per_path, "max_abs_err": errs[name],
+               "ms": t["ms"], "device_ms": t["device_ms"],
+               "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"],
+               "library_device_ms": t["library_device_ms"]}
+        if name == "flash_attention":     # its second shape: llama-2-7b's
+            rec.update({"llama_" + key: val for key, val
+                        in times["flash_attention_llama"].items()
+                        if key != "shape"})
+        kernels.append(rec)
     log("kernels: " + ", ".join(
         f"{k['name']} err={k['max_abs_err']:.3e} {k['ms']:.4f} ms "
         f"(plain {k['plain_ms']:.4f}, library {k['library_ms']}, bound "
@@ -898,16 +977,13 @@ def main(argv=None) -> int:
         for k in kernels))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
-                    exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump({"gpu": gpu, "torch": torch.__version__,
-                       "cuda": torch.version.cuda, "kernels": kernels,
-                       "timing_shapes": {n: t["shape"]
-                                         for n, t in times.items()},
-                       "serve": served, "gateway": gateway,
-                       "gateway_mamba": mamba_gateway}, f, indent=1,
-                      default=str)
+        write_json(args.json, {"gpu": gpu, "torch": torch.__version__,
+                               "cuda": torch.version.cuda, "src": SRC,
+                               "kernels": kernels,
+                               "timing_shapes": {n: t["shape"]
+                                                 for n, t in times.items()},
+                               "serve": served, "gateway": gateway,
+                               "gateway_mamba": mamba_gateway})
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py
 //   decode_attention_kernel (body _dec_kernel), the Pallas TPU kernel, in
-//   both its modes: the float32/bfloat16 cache (repro_decode_attention)
-//   and the int8 cache (repro_decode_attention_int8, kernel.py:41-43,
-//   :98-111).
+//   both its modes: the float32/bfloat16 cache (repro_decode_attention,
+//   kernel dec_fwd) and the int8 cache (repro_decode_attention_int8,
+//   kernel dec_int8_split; kernel.py:41-43, :98-111).
 //
 // What it computes: q [B,1,H,hd], k/v [B,S,KV,hd] (row-major, contiguous),
 // kv_len [B] int32 -> o [B,1,H,hd] in q's dtype.  Query head h = kh*g + r
@@ -15,7 +15,7 @@
 // `arange(S) < kv_len` does: the engine's gang decode reaches it when a
 // sequence runs past the cache.  A kv_len below 1 masks every position,
 // which the reference turns into a uniform average over all S positions;
-// so does this kernel.
+// so do both kernels.
 //
 // int8 mode: k/v are int8 [B,S,KV,hd] with per-token-per-head bf16 scales
 // k_scale/v_scale [B,S,KV] (the engine's cache layout; the Pallas wrapper
@@ -30,33 +30,68 @@
 // moved a cached int8 scale of the reduced gemma-7b test model by one
 // bf16 step against the JAX model).
 //
-// What bounds it on this card: each (b, kv-head) reads its min(kv_len, S)
-// cached keys and values once and does 4*g*hd FLOPs per position, about
-// 2 FLOPs a byte at g=2 in bf16 (4 at g=1 in int8) -- it is bound by
-// device-memory bytes.
-// Its design: one block per (b, kv-head), so the g query rows of a group
-// share every K/V byte read; the sweep stops at min(kv_len[b], S) instead
-// of sweeping all S; each warp streams its own 8-key chunks with the 32
+// What bounds both on this card: each (b, kv-head) reads its
+// min(kv_len, S) cached keys and values once and does 4*g*hd FLOPs per
+// position, about 2 FLOPs a byte at g=2 in bf16 (4 at g=1 in int8) --
+// they are bound by device-memory bytes.
+//
+// dec_fwd (float modes): one block per (b, kv-head), so the g query rows
+// of a group share every K/V byte read; the sweep stops at
+// min(kv_len[b], S); each warp streams its own 8-key chunks with the 32
 // lanes on consecutive head_dim elements (coalesced 256-byte rows for
 // hd=128 in bf16), keeps its own online-softmax state, and the 4 warps
 // merge once at the end through shared memory.  At the engine's batch
-// (B = n_slots = 8, KV = 8) that is 64 blocks for 132 SMs, so the card
-// is not full: splitting S across blocks (split-K, with a second merge
-// pass) is later work.  llama-2-7b's int8 engines (MHA, KV = 32) give
-// 8 x 32 = 256 blocks.
+// (B = n_slots = 8, KV = 8) that is 64 blocks for 132 SMs: splitting S
+// across blocks is the next redesign.
+//
+// dec_int8_split (int8 mode), built so that many bytes are in flight:
+//  - loads: a lane loads 16 int8 values (16 bytes) of a row, so at hd=128
+//    a row is 8 lanes and one warp load covers 4 rows; each warp issues
+//    16 rows of K and the same 16 rows of V (and their scales) before it
+//    computes anything, so K's and V's latencies overlap;
+//  - conversion: int8 -> f32 by a byte permute into the mantissa of 2^23
+//    and one subtraction (exact), not the slow integer-to-float unit;
+//  - scores: each lane takes a 16-element partial dot product, reduced in
+//    log2(hd/16) shuffles over the row's lanes; each group of lanes keeps
+//    its own online-softmax state over the rows it loads, merged once
+//    after the sweep;
+//  - split-S across a thread-block cluster: the grid is (b, kv-head,
+//    split) with a cluster of kSplit = 8 blocks along the split; each
+//    block takes ceil(len / 8) positions rounded up to its 64 rows per
+//    iteration, so short and long rows both spread over 8 SMs (llama-2-7b
+//    at B=8: 2,048 blocks instead of 256).  Each block leaves its merged
+//    (m, l, acc[g][hd]) in shared memory; after a cluster barrier rank 0
+//    reads the 8 partials through distributed shared memory in rank
+//    order and writes o.  One launch per call, no scratch in device
+//    memory, no state between calls, and a fixed merge order: repeated
+//    calls give identical bits.  A block with no positions contributes
+//    l = 0.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
-constexpr int kChunk = 8;  // keys per warp step
+constexpr int kChunk = 8;  // keys per warp step (float modes)
 constexpr unsigned kFull = 0xffffffffu;
+
+// int8 mode (tests/test_torch_kernels.py reads kSplit, kWarps and
+// kWarpRows from this file to hold the split on the CPU)
+constexpr int kSplit = 8;       // blocks (one cluster) per (b, kv-head)
+constexpr int kSeg = 16;        // int8 values per lane load: 16 bytes
+constexpr int kWarpRows = 16;   // cache rows per warp per iteration
+constexpr int kBlockRows = kWarps * kWarpRows;  // 64: a split's granule
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 // E contiguous elements starting at p, as f32
 template <int E>
@@ -81,53 +116,17 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
   }
 }
 
-template <int E>
-__device__ __forceinline__ void load_row(const int8_t* p, float* out) {
-  if constexpr (E % 4 == 0) {
-    const char4* p4 = reinterpret_cast<const char4*>(p);
-#pragma unroll
-    for (int i = 0; i < E / 4; ++i) {
-      const char4 c = p4[i];
-      out[4 * i] = (float)c.x;
-      out[4 * i + 1] = (float)c.y;
-      out[4 * i + 2] = (float)c.z;
-      out[4 * i + 3] = (float)c.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < E; ++i) out[i] = (float)p[i];
-  }
-}
-
-// One cached row of E elements as f32; an int8 row is dequantized with
-// its bf16 scale (the scales have a stride of KV between positions).
-template <typename KT, int E>
-__device__ __forceinline__ void load_kv(const KT* p,
-                                        const __nv_bfloat16* scale,
-                                        float* out) {
-  load_row<E>(p, out);
-  if constexpr (std::is_same<KT, int8_t>::value) {
-    const float sc = __bfloat162float(*scale);
-#pragma unroll
-    for (int i = 0; i < E; ++i) out[i] *= sc;
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// T: q/o type; KT: cache type (T, or int8_t with bf16 scales)
-template <typename T, typename KT, int HD, int G>
+// T: q/o/cache type (float or bf16)
+template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
-    dec_fwd(const T* __restrict__ q, const KT* __restrict__ k,
-            const KT* __restrict__ v,
-            const __nv_bfloat16* __restrict__ k_scale,
-            const __nv_bfloat16* __restrict__ v_scale,
-            const int* __restrict__ kv_len, T* __restrict__ o, int s,
-            int kvh, float sm_scale) {
-  constexpr bool kInt8 = std::is_same<KT, int8_t>::value;
+    dec_fwd(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const int* __restrict__ kv_len,
+            T* __restrict__ o, int s, int kvh, float sm_scale) {
   constexpr int E = HD / 32;  // head_dim elements per lane: lane*E + i
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
@@ -140,14 +139,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   len = none ? s : min(len, s);
 
   const long row = (long)kvh * HD;  // stride between cache positions
-  const KT* kb = k + (long)b * s * row + (long)kh * HD + lane * E;
-  const KT* vb = v + (long)b * s * row + (long)kh * HD + lane * E;
-  // scales of position 0 of this (b, kv-head); position c is c * kvh on
-  // (unused in the float modes, where they are null)
-  const __nv_bfloat16* ksb = kInt8 ? k_scale + (long)b * s * kvh + kh
-                                   : nullptr;
-  const __nv_bfloat16* vsb = kInt8 ? v_scale + (long)b * s * kvh + kh
-                                   : nullptr;
+  const T* kb = k + (long)b * s * row + (long)kh * HD + lane * E;
+  const T* vb = v + (long)b * s * row + (long)kh * HD + lane * E;
   const T* qb = q + ((long)b * kvh * G + (long)kh * G) * HD + lane * E;
 
   float qr[G][E], m[G], l[G], acc[G][E];
@@ -165,8 +158,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
       if (c0 + j < len) {
-        load_kv<KT, E>(kb + (c0 + j) * row,
-                       kInt8 ? ksb + (long)(c0 + j) * kvh : nullptr, kf[j]);
+        load_row<E>(kb + (c0 + j) * row, kf[j]);
       } else {
 #pragma unroll
         for (int i = 0; i < E; ++i) kf[j][i] = 0.f;
@@ -194,8 +186,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
       if (c0 + j < len) {
-        load_kv<KT, E>(vb + (c0 + j) * row,
-                       kInt8 ? vsb + (long)(c0 + j) * kvh : nullptr, vf[j]);
+        load_row<E>(vb + (c0 + j) * row, vf[j]);
       } else {
 #pragma unroll
         for (int i = 0; i < E; ++i) vf[j][i] = 0.f;
@@ -254,29 +245,291 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, typename KT, int HD>
-cudaError_t launch_hd(const T* q, const KT* k, const KT* v,
-                      const __nv_bfloat16* k_scale,
-                      const __nv_bfloat16* v_scale, const int* kv_len, T* o,
-                      int b, int s, int kvh, int g, float scale,
+// Four int8 values packed in a word -> f32, exactly: each byte, offset
+// to unsigned (x + 128), becomes the low mantissa byte of 2^23, and
+// 2^23 + 128 is subtracted.  A byte permute and an add per value, where
+// the integer-to-float unit converts 16 values a clock per SM.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+}
+
+__device__ __forceinline__ void i8x16_to_f32(int4 w, float* f) {
+  i8x4_to_f32((uint32_t)w.x, f);
+  i8x4_to_f32((uint32_t)w.y, f + 4);
+  i8x4_to_f32((uint32_t)w.z, f + 8);
+  i8x4_to_f32((uint32_t)w.w, f + 12);
+}
+
+// T: q/o type (float or bf16).  The grid is B * KV * kSplit blocks in
+// clusters of kSplit; cluster rank = the block's split of S.
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(kWarps * 32)
+    dec_int8_split(const T* __restrict__ q, const int8_t* __restrict__ k,
+                   const int8_t* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ k_scale,
+                   const __nv_bfloat16* __restrict__ v_scale,
+                   const int* __restrict__ kv_len, T* __restrict__ o, int s,
+                   int kvh, float sm_scale) {
+  constexpr int LPR = HD / kSeg;      // lanes per cached row: 2, 4 or 8
+  constexpr int RPL = 32 / LPR;       // rows per warp load: 16, 8 or 4
+  constexpr int U = kWarpRows / RPL;  // loads of K (and of V) per step
+  // q in registers for up to 4 query rows a kv-head, else in shared
+  // memory (16 f32 of q and 16 of acc per row and lane)
+  constexpr bool kQReg = G <= 4;
+  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
+  __shared__ float sm_acc[kWarps][G][HD];
+  __shared__ float part_m[G], part_l[G];  // this block's partial
+  __shared__ float part_acc[G][HD];
+  __shared__ float sm_q[kQReg ? 1 : G][HD];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bk = blockIdx.x / kSplit;  // (b, kv-head)
+  const int b = bk / kvh, kh = bk % kvh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane / LPR, seg = lane % LPR;
+
+  int len = kv_len[b];
+  const bool none = len <= 0;  // every position masked
+  len = none ? s : min(len, s);
+  // this block's positions: ceil(len / kSplit) rounded up to kBlockRows
+  const int chunk =
+      ((len + kSplit - 1) / kSplit + kBlockRows - 1) / kBlockRows *
+      kBlockRows;
+  const int start = min(rank * chunk, len);
+  const int end = min(start + chunk, len);
+
+  const long row = (long)kvh * HD;  // bytes between cache positions
+  const int8_t* kb = k + (long)b * s * row + (long)kh * HD + seg * kSeg;
+  const int8_t* vb = v + (long)b * s * row + (long)kh * HD + seg * kSeg;
+  // scales of position 0 of this (b, kv-head); position c is c * kvh on
+  const __nv_bfloat16* ksb = k_scale + (long)b * s * kvh + kh;
+  const __nv_bfloat16* vsb = v_scale + (long)b * s * kvh + kh;
+  const T* qb = q + ((long)b * kvh * G + (long)kh * G) * HD;
+
+  float qr[kQReg ? G : 1][kSeg];
+  if constexpr (kQReg) {
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+      load_row<kSeg>(qb + r * HD + seg * kSeg, qr[r]);
+  } else {
+    for (int e = threadIdx.x; e < G * HD; e += kWarps * 32)
+      sm_q[e / HD][e % HD] = to_f32(qb[e]);
+    __syncthreads();
+  }
+
+  float m[G], l[G], acc[G][kSeg];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i) acc[r][i] = 0.f;
+  }
+
+  // warp w takes rows [base, base + 16) of each 64-row step; load u of
+  // a lane covers row base + u * RPL + rg, bytes seg * 16 .. + 15
+  for (int base = start + warp * kWarpRows; base < end; base += kBlockRows) {
+    int4 kr[U], vr[U];
+    float ksc[U], vsc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + u * RPL + rg;
+      if (c < end) {
+        kr[u] = __ldg(reinterpret_cast<const int4*>(kb + c * row));
+        vr[u] = __ldg(reinterpret_cast<const int4*>(vb + c * row));
+        ksc[u] = __bfloat162float(ksb[(long)c * kvh]);
+        vsc[u] = __bfloat162float(vsb[(long)c * kvh]);
+      } else {
+        kr[u] = vr[u] = make_int4(0, 0, 0, 0);
+        ksc[u] = vsc[u] = 0.f;
+      }
+    }
+    float sc[G][U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[kSeg];
+      i8x16_to_f32(kr[u], kf);
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) {
+          if constexpr (kQReg) {
+            dot += qr[r][i] * kf[i];
+          } else {
+            dot += sm_q[r][seg * kSeg + i] * kf[i];
+          }
+        }
+        sc[r][u] = dot;
+      }
+    }
+    // sum the partial dot products over the row's LPR lanes
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          sc[r][u] += __shfl_xor_sync(kFull, sc[r][u], off);
+
+    float pw[G][U];  // softmax weight times the V row's scale
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      float m_tile = kNegInf;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sc[r][u] = none ? kNegInf : sc[r][u] * ksc[u] * sm_scale;
+        if (base + u * RPL + rg < end) m_tile = fmaxf(m_tile, sc[r][u]);
+      }
+      const float m_new = fmaxf(m[r], m_tile);
+      const float alpha = expf(m[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p =
+            (base + u * RPL + rg < end) ? expf(sc[r][u] - m_new) : 0.f;
+        psum += p;
+        pw[r][u] = p * vsc[u];
+      }
+#pragma unroll
+      for (int i = 0; i < kSeg; ++i) acc[r][i] *= alpha;
+      l[r] = l[r] * alpha + psum;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[kSeg];
+      i8x16_to_f32(vr[u], vf);
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) acc[r][i] += pw[r][u] * vf[i];
+    }
+  }
+
+  // merge the lane groups of a warp (lanes with the same seg)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      const float mo = __shfl_xor_sync(kFull, m[r], off);
+      const float lo = __shfl_xor_sync(kFull, l[r], off);
+      const float mx = fmaxf(m[r], mo);
+      const float a = expf(m[r] - mx), c = expf(mo - mx);
+      l[r] = l[r] * a + lo * c;
+#pragma unroll
+      for (int i = 0; i < kSeg; ++i)
+        acc[r][i] =
+            acc[r][i] * a + __shfl_xor_sync(kFull, acc[r][i], off) * c;
+      m[r] = mx;
+    }
+  if (rg == 0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+#pragma unroll
+      for (int i = 0; i < kSeg; ++i)
+        sm_acc[warp][r][seg * kSeg + i] = acc[r][i];
+      if (seg == 0) {
+        sm_m[warp][r] = m[r];
+        sm_l[warp][r] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  // merge the warps into this block's partial
+  for (int e = threadIdx.x; e < G * HD; e += kWarps * 32) {
+    const int r = e / HD, d = e % HD;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(sm_m[w][r] - mx);
+      den += sm_l[w][r] * c;
+      num += sm_acc[w][r][d] * c;
+    }
+    part_acc[r][d] = num;
+    if (d == 0) {
+      part_m[r] = mx;
+      part_l[r] = den;
+    }
+  }
+  cluster.sync();  // every block's partial is written
+  if (rank == 0) {
+    T* ob = o + ((long)b * kvh * G + (long)kh * G) * HD;
+    for (int e = threadIdx.x; e < G * HD; e += kWarps * 32) {
+      const int r = e / HD, d = e % HD;
+      float pm[kSplit];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kSplit; ++j) {
+        pm[j] = *cluster.map_shared_rank(&part_m[r], j);
+        mx = fmaxf(mx, pm[j]);
+      }
+      float den = 0.f, num = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSplit; ++j) {
+        const float c = expf(pm[j] - mx);
+        den += *cluster.map_shared_rank(&part_l[r], j) * c;
+        num += *cluster.map_shared_rank(&part_acc[r][d], j) * c;
+      }
+      store(&ob[r * HD + d], num / fmaxf(den, 1e-20f));
+    }
+  }
+  cluster.sync();  // rank 0 has read every partial: shared memory may go
+}
+
+template <typename T, int HD, int G>
+cudaError_t launch_int8(const T* q, const int8_t* k, const int8_t* v,
+                        const __nv_bfloat16* k_scale,
+                        const __nv_bfloat16* v_scale, const int* kv_len,
+                        T* o, int b, int s, int kvh, float scale,
+                        cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long)b * kvh * kSplit));
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dec_int8_split<T, HD, G>, q, k, v, k_scale, v_scale, kv_len, o,
+      s, kvh, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* kv_len,
+                      T* o, int b, int s, int kvh, int g, float scale,
                       cudaStream_t stream) {
   const dim3 grid((unsigned)(b * kvh)), block(kWarps * 32);
   switch (g) {
     case 1:
-      dec_fwd<T, KT, HD, 1><<<grid, block, 0, stream>>>(
-          q, k, v, k_scale, v_scale, kv_len, o, s, kvh, scale);
+      dec_fwd<T, HD, 1><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
+                                                    kvh, scale);
       break;
     case 2:
-      dec_fwd<T, KT, HD, 2><<<grid, block, 0, stream>>>(
-          q, k, v, k_scale, v_scale, kv_len, o, s, kvh, scale);
+      dec_fwd<T, HD, 2><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
+                                                    kvh, scale);
       break;
     case 4:
-      dec_fwd<T, KT, HD, 4><<<grid, block, 0, stream>>>(
-          q, k, v, k_scale, v_scale, kv_len, o, s, kvh, scale);
+      dec_fwd<T, HD, 4><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
+                                                    kvh, scale);
       break;
     case 8:
-      dec_fwd<T, KT, HD, 8><<<grid, block, 0, stream>>>(
-          q, k, v, k_scale, v_scale, kv_len, o, s, kvh, scale);
+      dec_fwd<T, HD, 8><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
+                                                    kvh, scale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -284,15 +537,62 @@ cudaError_t launch_hd(const T* q, const KT* k, const KT* v,
   return cudaGetLastError();
 }
 
-// KT = T for the float caches, int8_t for the int8 cache (with scales)
-template <typename T, typename KT>
+template <typename T, int HD>
+cudaError_t launch_int8_hd(const T* q, const int8_t* k, const int8_t* v,
+                           const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                           const int* kv_len, T* o, int b, int s, int kvh,
+                           int g, float scale, cudaStream_t stream) {
+  switch (g) {
+    case 1:
+      return launch_int8<T, HD, 1>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
+                                   scale, stream);
+    case 2:
+      return launch_int8<T, HD, 2>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
+                                   scale, stream);
+    case 4:
+      return launch_int8<T, HD, 4>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
+                                   scale, stream);
+    case 8:
+      return launch_int8<T, HD, 8>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
+                                   scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* k_scale, const void* v_scale,
                    const int* kv_len, void* o, int b, int s, int h, int kvh,
                    int hd, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
-  const KT* kp = static_cast<const KT*>(k);
-  const KT* vp = static_cast<const KT*>(v);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(o);
+  const int g = h / kvh;
+  const float scale = 1.f / sqrtf((float)hd);
+  switch (hd) {
+    case 32:
+      return launch_hd<T, 32>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
+                              stream);
+    case 64:
+      return launch_hd<T, 64>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
+                              stream);
+    case 128:
+      return launch_hd<T, 128>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
+                               stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_int8_t(const void* q, const void* k, const void* v,
+                          const void* k_scale, const void* v_scale,
+                          const int* kv_len, void* o, int b, int s, int h,
+                          int kvh, int hd, cudaStream_t stream) {
+  const T* qp = static_cast<const T*>(q);
+  const int8_t* kp = static_cast<const int8_t*>(k);
+  const int8_t* vp = static_cast<const int8_t*>(v);
   const __nv_bfloat16* ks = static_cast<const __nv_bfloat16*>(k_scale);
   const __nv_bfloat16* vs = static_cast<const __nv_bfloat16*>(v_scale);
   T* op = static_cast<T*>(o);
@@ -300,14 +600,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const float scale = 1.f / sqrtf((float)hd);
   switch (hd) {
     case 32:
-      return launch_hd<T, KT, 32>(qp, kp, vp, ks, vs, kv_len, op, b, s, kvh,
-                                  g, scale, stream);
-    case 64:
-      return launch_hd<T, KT, 64>(qp, kp, vp, ks, vs, kv_len, op, b, s, kvh,
-                                  g, scale, stream);
-    case 128:
-      return launch_hd<T, KT, 128>(qp, kp, vp, ks, vs, kv_len, op, b, s,
+      return launch_int8_hd<T, 32>(qp, kp, vp, ks, vs, kv_len, op, b, s,
                                    kvh, g, scale, stream);
+    case 64:
+      return launch_int8_hd<T, 64>(qp, kp, vp, ks, vs, kv_len, op, b, s,
+                                   kvh, g, scale, stream);
+    case 128:
+      return launch_int8_hd<T, 128>(qp, kp, vp, ks, vs, kv_len, op, b, s,
+                                    kvh, g, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -326,11 +626,10 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (dtype == 0)
-    return (int)launch<float, float>(q, k, v, nullptr, nullptr, lens, o, b,
-                                     s, h, kvh, hd, st);
+    return (int)launch<float>(q, k, v, lens, o, b, s, h, kvh, hd, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, nullptr, nullptr, lens, o, b, s, h, kvh, hd, st);
+    return (int)launch<__nv_bfloat16>(q, k, v, lens, o, b, s, h, kvh, hd,
+                                      st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -346,10 +645,10 @@ extern "C" int repro_decode_attention_int8(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (dtype == 0)
-    return (int)launch<float, int8_t>(q, k, v, k_scale, v_scale, lens, o, b,
-                                      s, h, kvh, hd, st);
+    return (int)launch_int8_t<float>(q, k, v, k_scale, v_scale, lens, o, b,
+                                     s, h, kvh, hd, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale,
-                                              lens, o, b, s, h, kvh, hd, st);
+    return (int)launch_int8_t<__nv_bfloat16>(q, k, v, k_scale, v_scale,
+                                             lens, o, b, s, h, kvh, hd, st);
   return (int)cudaErrorInvalidValue;
 }

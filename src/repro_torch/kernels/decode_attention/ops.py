@@ -13,7 +13,8 @@ int8 caches with per-token-per-head bf16 scales ``k_scale``/``v_scale``
 Pallas kernel's bf16 output; for an f32 q the Pallas kernel also rounds
 through bf16, which this port leaves out so that the model's f32 decode
 matches the JAX model's (see ``csrc/decode_attention.cu``).  The two
-modes count their launches apart.
+modes count their launches apart; each call is one launch (the int8
+mode's split of S over a cluster of 8 blocks merges inside that launch).
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ PyTorch version.
 ``flash_attention`` dispatches on the tensors' device: CPU tensors go to
 :func:`flash_attention_plain`, CUDA tensors to the hand-written kernel in
 ``csrc/flash_attention.cu`` (built on first use), anything else raises.
-There is no fallback from the kernel to the plain version.
+There is no fallback from the kernel to the plain version.  A bf16 call
+runs ``fa_fwd_tc`` (tensor cores; P is rounded to bf16 before P V), an
+f32 call ``fa_fwd`` (CUDA cores, full f32); one launch per call either way.
 """
 from __future__ import annotations
 

@@ -100,6 +100,75 @@ def test_cuda_decode_int8_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_cuda_flash_bf16_tensor_cores_match_plain(cuda_device, hd):
+    """The bf16 kernel (tensor cores, 64-row q tiles, 64-key K/V tiles)
+    against its plain version: Sq across the tiles' edges, GQA and MHA,
+    a query chunk after a cached prefix (q_offset > 0) and non-causal;
+    2e-2 covers P rounded to bf16 before P V."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for b, sq, skv, h, kv, off, causal in (
+            (1, 1, 1, 8, 2, 0, True), (2, 63, 63, 8, 2, 0, True),
+            (1, 64, 64, 4, 4, 0, True), (1, 65, 65, 8, 1, 0, True),
+            (2, 200, 200, 8, 2, 0, True), (1, 130, 300, 4, 2, 170, True),
+            (1, 77, 150, 8, 2, 0, False), (1, 129, 64, 4, 4, 0, False)):
+        q = _rand(g, cuda_device, torch.bfloat16, b, sq, h, hd)
+        k = _rand(g, cuda_device, torch.bfloat16, b, skv, kv, hd)
+        v = _rand(g, cuda_device, torch.bfloat16, b, skv, kv, hd)
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, causal=causal, q_offset=off)
+        assert fa.launches == before + 1
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        torch.testing.assert_close(
+            out.float(), fa.flash_attention_plain(
+                q, k, v, causal=causal, q_offset=off).float(),
+            rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_int8_split_edges_match_plain(cuda_device, dtype):
+    """kv_len at the edges of the int8 kernel's split of S (8 blocks of
+    ceil(len/8) positions rounded up to 64): 0 (all masked), 1, one
+    block exactly full (64) and the next taking one row (65), all 8 full
+    (512) and the next granule (513), S and past S."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, s, h, kv, hd = 12, 1100, 4, 2, 128
+    q = _rand(g, cuda_device, dtype, b, 1, h, hd)
+    k, ks = _int8_cache(g, cuda_device, b, s, kv, hd)
+    v, vs = _int8_cache(g, cuda_device, b, s, kv, hd)
+    lens = torch.tensor([0, 1, 63, 64, 65, 511, 512, 513, 1024, 1025, s,
+                         s + 900], dtype=torch.int32, device=cuda_device)
+    out = da.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(
+        out.float(), da.decode_attention_plain(q, k, v, lens, ks,
+                                               vs).float(),
+        rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_redesigned_kernels_repeat_bit_for_bit(cuda_device):
+    """Two calls on the same inputs give identical bits: the int8 mode
+    merges its splits in a fixed order, flash has no cross-block sum."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = _rand(g, cuda_device, torch.bfloat16, 8, 1, 32, 128)
+    k, ks = _int8_cache(g, cuda_device, 8, 2048, 32, 128)
+    v, vs = _int8_cache(g, cuda_device, 8, 2048, 32, 128)
+    lens = torch.tensor([279, 752, 1269, 1684, 1519, 2035, 466, 2100],
+                        dtype=torch.int32, device=cuda_device)
+    first, second = (da.decode_attention(q, k, v, lens, k_scale=ks,
+                                         v_scale=vs) for _ in range(2))
+    assert torch.equal(first, second)
+    q = _rand(g, cuda_device, torch.bfloat16, 1, 300, 32, 128)
+    k = _rand(g, cuda_device, torch.bfloat16, 1, 300, 32, 128)
+    v = _rand(g, cuda_device, torch.bfloat16, 1, 300, 32, 128)
+    assert torch.equal(fa.flash_attention(q, k, v),
+                       fa.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
 def test_cuda_decode_int8_rejects_what_the_kernel_does_not_take(
         cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)

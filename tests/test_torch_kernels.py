@@ -7,6 +7,10 @@ interpret mode, on ``tests/test_kernels.py``'s shape sweep (2e-5 in f32,
 against the oracles only: the Pallas kernels assert divisibility.  The
 CUDA kernels themselves are checked on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
+import math
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -184,6 +188,85 @@ def test_decode_int8_plain_is_the_dequantized_float_mode():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="both"):
         da.decode_attention(q, k, v, lens, k_scale=ks)
+
+
+def _cu_int(name):
+    """An integer constant of the int8 kernel's source."""
+    src = (pathlib.Path(da.__file__).parent / "csrc"
+           / "decode_attention.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _int8_split_merge(q, k, v, k_scale, v_scale, lens, n_split, granule):
+    """The int8 kernel's algorithm (``dec_int8_split``) in plain f32
+    torch: block ``rank`` of ``n_split`` sweeps positions [rank * chunk,
+    (rank + 1) * chunk) of min(kv_len, S) -- all S, masked, for kv_len
+    below 1 -- with chunk = ceil(len / n_split) rounded up to
+    ``granule``, and leaves (m, l, acc); the partials are merged in rank
+    order.  Returns the output and each row's partials' l."""
+    b, _, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    kf = k.float() * k_scale.float()[..., None]
+    vf = v.float() * v_scale.float()[..., None]
+    out, ls = torch.empty(b, 1, h, hd), []
+    for bi in range(b):
+        n = int(lens[bi])
+        none = n <= 0
+        n = s if none else min(n, s)
+        chunk = -(-(-(-n // n_split)) // granule) * granule
+        qg = q[bi, 0].float().reshape(kv, h // kv, hd)
+        parts = []
+        for rank in range(n_split):
+            lo = min(rank * chunk, n)
+            hi = min(lo + chunk, n)
+            sc = torch.einsum("kgd,skd->kgs", qg, kf[bi, lo:hi]) / math.sqrt(
+                hd)
+            if none:
+                sc = torch.full_like(sc, -1e30)
+            m = (sc.amax(-1) if hi > lo
+                 else torch.full(sc.shape[:2], -1e30))
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(-1),
+                          torch.einsum("kgs,skd->kgd", p, vf[bi, lo:hi])))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        den = sum(l_ * torch.exp(m - mx) for m, l_, _ in parts)
+        num = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+        out[bi, 0] = (num / den.clamp_min(1e-20)[..., None]).reshape(h, hd)
+        ls.append([l_ for _, l_, _ in parts])
+    return out, ls
+
+
+@pytest.mark.parametrize("lens", [
+    [0, 1, 63, 64, 65],          # all masked; one block exactly full
+    [255, 256, 257, 511, 512],   # a block's tail; all 8 blocks full
+    [513, 575, 576, 600, 900],   # the next granule; S; past S
+])
+def test_decode_int8_split_merge_matches_plain(lens):
+    """The int8 kernel's split-and-merge algorithm, written here in plain
+    torch with the kernel's constants (8 blocks per cluster, 64-row
+    granule), equals the plain version at the split's edges; empty
+    blocks contribute l = 0.  This holds the algorithm, not the kernel:
+    the kernel itself is held at these edges by
+    ``test_torch_cuda.py::test_cuda_decode_int8_split_edges_match_plain``."""
+    n_split = _cu_int("kSplit")
+    granule = _cu_int("kWarps") * _cu_int("kWarpRows")
+    assert (n_split, granule) == (8, 64)
+    rng = np.random.default_rng(6)
+    b, s, h, kv, hd = len(lens), 600, 4, 2, 32
+    _, (k, ks) = _int8_pair(rng, (b, s, kv, hd))
+    _, (v, vs) = _int8_pair(rng, (b, s, kv, hd))
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, hd)).astype(
+        np.float32))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    got, ls = _int8_split_merge(q, k, v, ks, vs, lens_t, n_split, granule)
+    want = da.decode_attention_plain(q, k, v, lens_t, ks, vs)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for n, row in zip(lens, ls):
+        n = s if n <= 0 else min(n, s)
+        chunk = -(-(-(-n // n_split)) // granule) * granule
+        used = -(-n // chunk)
+        assert all(bool((l_ > 0).all()) for l_ in row[:used])
+        assert all(bool((l_ == 0).all()) for l_ in row[used:])
 
 
 def test_wrappers_refuse_other_devices():
