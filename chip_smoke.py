@@ -17,11 +17,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      bf16 flash kernel also at llama-2-7b's heads (H=KV=32, hd=128) across
      its 64-row tiles' edges, after a cached prefix and non-causal; the
      int8-cache decode mode at llama-2-7b's (B=8, S=2048, H=KV=32,
-     hd=128, bf16 q, 2e-2), kv_len across its split's edges; the
-     selective scan at falcon-mamba-7b's
+     hd=128, bf16 q, 2e-2), kv_len across its split's edges; the bf16
+     decode mode at qwen3-0.6b's heads (B=8, S=1024, H=16, KV=8,
+     hd=128), kv_len across the same split's edges; the selective scan
+     at falcon-mamba-7b's
      (B=1, S=1024, di=8192, ds=16, bf16 xc/b/c, f32 dt: y within 2e-2,
-     the f32 final state within 1e-4 of its scale) and at reduced f32
-     shapes with a ragged S and S=1 (1e-4);
+     the f32 final state within 1e-4 of its scale), at reduced f32
+     shapes with a ragged S and S=1 (1e-4), and at falcon-mamba-7b's
+     width with a random a_log per (channel, state) at S=1024 and at S
+     ragged against the kernel's 64-step chunks (1, 31, 33, 1017), bf16
+     and f32;
   3. timing with CUDA events (median of 30 runs after warm-up, L2 flushed
      before each run; ``ms`` from the call's enqueue on, ``device_ms``
      with a spin kernel ahead of the start event that keeps the card busy
@@ -31,7 +36,8 @@ Phases, in order; any failure raises and the process exits non-zero:
      only; for the int8 mode on the cache dequantized beforehand, the
      dequantization not timed; no single PyTorch call computes a
      selective scan), beside the least time the card could take; flash
-     at qwen3-0.6b's prefill shape and at llama-2-7b's;
+     at qwen3-0.6b's prefill shape and at llama-2-7b's, the scan at
+     S=1024 and S=100;
   4. small reduced models (qwen3-0.6b, falcon-mamba-7b) on the card
      (kernels) against the same models on the CPU (plain versions),
      logits within 1e-3;
@@ -97,8 +103,10 @@ KERNELS = (
 )
 # llama-2-7b's decode attention: n_slots=8, cache 2048, MHA 32 x 128
 LLAMA_DECODE = dict(b=8, s=2048, h=32, kvh=32, hd=128)
-# falcon-mamba-7b's selective scan in a 1024-token prefill
+# falcon-mamba-7b's selective scan in a 1024-token prefill, and in one of
+# phase 7's shortest prompts
 FALCON_SCAN = dict(b=1, s=1024, di=8192, ds=16)
+SCAN_SHORT_S = 100
 # bf16 flash at llama-2-7b's heads, (Sq, Skv, q_offset, causal): Sq across
 # the 64-row q tiles' edges, a chunk after a cached prefix, non-causal
 FLASH_LLAMA_CASES = ((1, 1, 0, True), (63, 63, 0, True), (64, 64, 0, True),
@@ -112,6 +120,16 @@ FLASH_LLAMA_CASES = ((1, 1, 0, True), (63, 63, 0, True), (64, 64, 0, True),
 INT8_LENS = ([1, 2, 37, 500, 1000, 2047, 2048, 2100],
              [0, 63, 64, 65, 255, 256, 257, 511],
              [512, 513, 575, 576, 577, 1024, 1025, 2049])
+# bf16 decode kv_len (B=8, S=1024), the same split's edges: 0, one block
+# exactly full (64) and the next taking one row (65), a block's tail
+# (255-257), all 8 full (512) and the next granule (513, 575-577), S and
+# past S (1023-1025, 2049)
+BF16_LENS = ([0, 63, 64, 65, 255, 256, 257, 2049],
+             [511, 512, 513, 575, 576, 577, 1, 1000],
+             [1023, 1024, 1025, 2, 37, 300, 700, 900])
+# the scan at falcon-mamba-7b's width with a random a_log: S=1024 and S
+# ragged against the kernel's 64-step chunks
+SCAN_RANDOM_A_S = (1024, 1, 31, 33, 1017)
 # llama-2-7b's prefill attention (phase 3's second flash shape)
 LLAMA_PREFILL = dict(s=1024, h=32, kvh=32, hd=128)
 
@@ -195,17 +213,21 @@ def check_kernels(torch, fa, da, ms, quantize_kv):
                 f"decode int8 cache, bf16 q, B=8 S=2048 H=KV=32 hd=128 "
                 f"kv_len={lens.tolist()}")
     fs = FALCON_SCAN
-    for (b, s, di, ds), act in (((fs["b"], fs["s"], fs["di"], fs["ds"]),
-                                 torch.bfloat16),
-                                ((2, 50, 128, 8), torch.float32),
-                                ((2, 1, 128, 8), torch.float32),
-                                ((1, 64, 256, 4), torch.float32)):
-        args = scan_inputs(torch, g, b, s, di, ds, act)
+    cases = [((fs["b"], fs["s"], fs["di"], fs["ds"]), torch.bfloat16, False),
+             ((2, 50, 128, 8), torch.float32, False),
+             ((2, 1, 128, 8), torch.float32, False),
+             ((1, 64, 256, 4), torch.float32, False)]
+    cases += [((fs["b"], s, fs["di"], fs["ds"]), act, True)
+              for s in SCAN_RANDOM_A_S
+              for act in (torch.bfloat16, torch.float32)]
+    for (b, s, di, ds), act, random_a in cases:
+        args = scan_inputs(torch, g, b, s, di, ds, act, random_a)
         y, hf = ms.mamba_scan(*args)
         y_ref, h_ref = ms.mamba_scan_plain(*args)
         bf16 = act == torch.bfloat16
         what = (f"mamba_scan {'bf16 xc/b/c' if bf16 else 'f32'}, f32 dt, "
-                f"B={b} S={s} di={di} ds={ds}")
+                f"B={b} S={s} di={di} ds={ds}"
+                + (", random a_log" if random_a else ""))
         compare("mamba_scan", y, y_ref, BF16_TOL if bf16 else SCAN_TOL,
                 what + " y")
         err = float((hf - h_ref).abs().max())
@@ -214,21 +236,36 @@ def check_kernels(torch, fa, da, ms, quantize_kv):
             scale, 1.0), (what, err, scale)
         log(f"  {what} h_final: max_abs_err={err:.3e} (|h| <= {scale:.3f},"
             f" tol {SCAN_TOL} x max(|h|, 1))")
+    # bf16 decode at qwen3-0.6b's heads across the split's edges (drawn
+    # last, so that the cases above keep their inputs)
+    q = rand((8, 1, 16, 128), torch.bfloat16)
+    k, v = (rand((8, 1024, 8, 128), torch.bfloat16) for _ in range(2))
+    for lens in BF16_LENS:
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        compare("decode_attention", da.decode_attention(q, k, v, lens),
+                da.decode_attention_plain(q, k, v, lens), BF16_TOL,
+                f"decode bf16 B=8 S=1024 H=16 KV=8 hd=128 "
+                f"kv_len={lens.tolist()}")
     torch.cuda.synchronize()
     return errs
 
 
-def scan_inputs(torch, g, b, s, di, ds, act_dtype):
+def scan_inputs(torch, g, b, s, di, ds, act_dtype, random_a=False):
     """Selective-scan inputs as the model passes them: xc, b, c in
     ``act_dtype``, dt in f32 (softplus-positive, ~0.07), a_log and d in
-    f32 (a_log = log(1..ds) per channel, as the model initialises it)."""
+    f32 (a_log = log(1..ds) per channel, as the model initialises it; with
+    ``random_a``, log(|N(0, 1)| + 0.5) per (channel, state), as trained
+    weights have no such structure)."""
     dev = torch.device("cuda")
 
     def rand(*shape):
         return torch.randn(shape, generator=g, device=dev)
     dt = torch.nn.functional.softplus(rand(b, s, di)) * 0.1
-    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
-                                   device=dev)).repeat(di, 1)
+    if random_a:
+        a_log = torch.log(rand(di, ds).abs() + 0.5)
+    else:
+        a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                       device=dev)).repeat(di, 1)
     return (rand(b, s, di).to(act_dtype), dt.contiguous(),
             rand(b, s, ds).to(act_dtype), rand(b, s, ds).to(act_dtype),
             a_log.contiguous(), torch.ones(di, device=dev))
@@ -333,9 +370,19 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
     valid = sum(min(max(n, 0), s) for n in kv_lens)
     b_ms, b_by = bound(4 * hd * h * valid,
                        2 * (2 * valid * kvh * hd + 2 * b * h * hd) + 4 * b)
+    # what device_ms holds beside the bytes: the kernel with one cached
+    # position a slot (its fixed cost), and one tiny kernel (the method's
+    # own floor)
+    ones = torch.ones(b, dtype=torch.int32, device=dev)
+    fixed = time_ms(torch, lambda: da.decode_attention(q, k, v, ones), flush,
+                    spin=True)
+    tiny = torch.empty(1, device=dev)
+    floor = time_ms(torch, tiny.zero_, flush, spin=True)
     out["decode_attention"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
                                    library_ms=lib, library_device_ms=lib_dev,
                                    bound_ms=b_ms, bound_by=b_by,
+                                   fixed_device_ms=fixed,
+                                   floor_device_ms=floor,
                                    shape=f"B={b} S={s} H=16 KV=8 hd=128 "
                                    f"bf16 kv_len={kv_lens}")
     # decode, int8 cache: llama-2-7b's shapes, this run's kv_len
@@ -367,25 +414,31 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
         shape=f"B={b} S={s} H=KV={h} hd={hd} int8 cache bf16 q "
         f"kv_len={kv_lens_int8}; library = sdpa on the pre-dequantized "
         "bf16 cache")
-    # selective scan: falcon-mamba-7b's prefill of 1024 tokens
-    fs = FALCON_SCAN
-    b, s, di, ds = fs["b"], fs["s"], fs["di"], fs["ds"]
-    args = scan_inputs(torch, g, b, s, di, ds, bf)
-    ms, dev_ms = timed(lambda: scan.mamba_scan(*args))
-    plain = time_ms(torch, lambda: scan.mamba_scan_plain(*args), flush)
-    # bf16 xc, b, c and y; f32 dt, a_log, d and h_final
-    nbytes = (2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds
-              + 4 * di * ds + 4 * di + 2 * b * s * di + 4 * b * di * ds)
-    # per (step, channel, state): dt*a, exp, the state's multiply-add
-    # (2), dt*x*B, h*C summed (2); per (step, channel): dt*x, D*x + sum
-    b_ms, b_by = bound(b * s * di * (7 * ds + 3), nbytes, PEAK_F32_FLOPS)
-    out["mamba_scan"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                             library_ms=None, library_device_ms=None,
-                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                             shape=f"B={b} S={s} di={di} ds={ds}, bf16 "
-                             "xc/b/c/y, f32 dt/a_log/d/h_final; no library"
-                             " call computes a selective scan")
+    def scan_timing(s, b=FALCON_SCAN["b"], di=FALCON_SCAN["di"],
+                    ds=FALCON_SCAN["ds"]):
+        """the selective scan at falcon-mamba-7b's width, S steps"""
+        args = scan_inputs(torch, g, b, s, di, ds, bf)
+        ms, dev_ms = timed(lambda: scan.mamba_scan(*args))
+        plain = time_ms(torch, lambda: scan.mamba_scan_plain(*args), flush)
+        # bf16 xc, b, c and y; f32 dt, a_log, d and h_final
+        nbytes = (2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds
+                  + 4 * di * ds + 4 * di + 2 * b * s * di + 4 * b * di * ds)
+        # per (step, channel, state): dt*a, exp, the state's multiply-add
+        # (2), dt*x*B, h*C summed (2); per (step, channel): dt*x, D*x + sum
+        b_ms, b_by = bound(b * s * di * (7 * ds + 3), nbytes,
+                           PEAK_F32_FLOPS)
+        return dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                    library_ms=None, library_device_ms=None, bound_ms=b_ms,
+                    bound_by=b_by, bytes=nbytes,
+                    shape=f"B={b} S={s} di={di} ds={ds}, bf16 xc/b/c/y, "
+                    "f32 dt/a_log/d/h_final; no library call computes a "
+                    "selective scan")
+
+    # selective scan: falcon-mamba-7b's prefill of 1024 tokens; its short
+    # prompts last
+    out["mamba_scan"] = scan_timing(FALCON_SCAN["s"])
     out["flash_attention_llama"] = prefill(**LLAMA_PREFILL)
+    out["mamba_scan_short"] = scan_timing(SCAN_SHORT_S)
     for name, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms (device "
@@ -394,6 +447,10 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
             f"{r['device_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    r = out["decode_attention"]
+    log(f"  decode_attention at kv_len=1 in every slot: device "
+        f"{r['fixed_device_ms']:.4f} ms; one tiny kernel: device "
+        f"{r['floor_device_ms']:.4f} ms")
     del flush
     return out
 
@@ -515,7 +572,7 @@ def serve(torch, np, m):
         f"{wall:.3f} s wall inside model passes")
     log(f"  virtual clock (profile {prof.name}, not a measurement): {stats}")
     device = profile_decode(torch, insts[0], dec_ms,
-                            ("decode_attention", "dec_fwd"))
+                            ("decode_attention", "dec_split"))
     return launches, dict(wall_s=wall, output_tokens=out_tok,
                           admissions=admissions, decode_iterations=iters,
                           prefill_median_ms=pre_ms,
@@ -793,7 +850,7 @@ def gateway_phase(torch, np, m):
     return gateway_runs(
         torch, np, m, cfg, params, 2048, ("rl", "mixing"),
         lambda: gateway_stream(np, m.Request, 24, 128, 6, 20_000), expect,
-        (("decode_attention_int8", "dec_int8_split"),
+        (("decode_attention_int8", "dec_split"),
          ("flash_attention", "fa_fwd_tc")))
 
 
@@ -965,10 +1022,16 @@ def main(argv=None) -> int:
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                "library_ms": t["library_ms"],
                "library_device_ms": t["library_device_ms"]}
-        if name == "flash_attention":     # its second shape: llama-2-7b's
-            rec.update({"llama_" + key: val for key, val
-                        in times["flash_attention_llama"].items()
-                        if key != "shape"})
+        rec.update({key: t[key] for key in ("fixed_device_ms",
+                                            "floor_device_ms") if key in t})
+        # second shapes: flash at llama-2-7b's prefill, the scan at a
+        # short prompt
+        for base, second, prefix in (
+                ("flash_attention", "flash_attention_llama", "llama_"),
+                ("mamba_scan", "mamba_scan_short", "short_")):
+            if name == base:
+                rec.update({prefix + key: val for key, val
+                            in times[second].items() if key != "shape"})
         kernels.append(rec)
     log("kernels: " + ", ".join(
         f"{k['name']} err={k['max_abs_err']:.3e} {k['ms']:.4f} ms "

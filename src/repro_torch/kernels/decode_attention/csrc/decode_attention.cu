@@ -2,9 +2,10 @@
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py
 //   decode_attention_kernel (body _dec_kernel), the Pallas TPU kernel, in
-//   both its modes: the float32/bfloat16 cache (repro_decode_attention,
-//   kernel dec_fwd) and the int8 cache (repro_decode_attention_int8,
-//   kernel dec_int8_split; kernel.py:41-43, :98-111).
+//   all its modes: the bfloat16 cache (repro_decode_attention, kernel
+//   dec_split), the float32 cache (repro_decode_attention, kernel
+//   dec_fwd) and the int8 cache (repro_decode_attention_int8, kernel
+//   dec_split; kernel.py:41-43, :98-111).
 //
 // What it computes: q [B,1,H,hd], k/v [B,S,KV,hd] (row-major, contiguous),
 // kv_len [B] int32 -> o [B,1,H,hd] in q's dtype.  Query head h = kh*g + r
@@ -30,42 +31,46 @@
 // moved a cached int8 scale of the reduced gemma-7b test model by one
 // bf16 step against the JAX model).
 //
-// What bounds both on this card: each (b, kv-head) reads its
+// What bounds it on this card: each (b, kv-head) reads its
 // min(kv_len, S) cached keys and values once and does 4*g*hd FLOPs per
-// position, about 2 FLOPs a byte at g=2 in bf16 (4 at g=1 in int8) --
-// they are bound by device-memory bytes.
+// position, about 2 FLOPs a byte (bf16 at g=2, int8 at g=1): bound by
+// device-memory bytes.  At the serving shapes the cache is small (19.1
+// MB for qwen3-0.6b's 8 slots, 0.0057 ms at 3.35 TB/s; 82.8 MB for
+// llama-2-7b's int8 cache), so the other limit is latency: how many bytes
+// are in flight at once, and the fixed costs of one launch.
 //
-// dec_fwd (float modes): one block per (b, kv-head), so the g query rows
-// of a group share every K/V byte read; the sweep stops at
-// min(kv_len[b], S); each warp streams its own 8-key chunks with the 32
-// lanes on consecutive head_dim elements (coalesced 256-byte rows for
-// hd=128 in bf16), keeps its own online-softmax state, and the 4 warps
-// merge once at the end through shared memory.  At the engine's batch
-// (B = n_slots = 8, KV = 8) that is 64 blocks for 132 SMs: splitting S
-// across blocks is the next redesign.
-//
-// dec_int8_split (int8 mode), built so that many bytes are in flight:
-//  - loads: a lane loads 16 int8 values (16 bytes) of a row, so at hd=128
-//    a row is 8 lanes and one warp load covers 4 rows; each warp issues
-//    16 rows of K and the same 16 rows of V (and their scales) before it
-//    computes anything, so K's and V's latencies overlap;
-//  - conversion: int8 -> f32 by a byte permute into the mantissa of 2^23
-//    and one subtraction (exact), not the slow integer-to-float unit;
-//  - scores: each lane takes a 16-element partial dot product, reduced in
-//    log2(hd/16) shuffles over the row's lanes; each group of lanes keeps
-//    its own online-softmax state over the rows it loads, merged once
-//    after the sweep;
+// dec_split (bf16 and int8 caches; one kernel, templated over the cache
+// element C), built so that many bytes are in flight:
+//  - loads: a lane loads 16 bytes of a row -- 8 bf16 or 16 int8 values --
+//    so at hd=128 a row is 16 lanes (bf16) or 8 (int8) and one warp load
+//    covers 2 or 4 rows; each warp issues 16 rows of K and the same 16
+//    rows of V (and, for int8, their scales) before it computes
+//    anything, so K's and V's latencies overlap;
+//  - conversion, exact and off the slow conversion unit: bf16 -> f32 is
+//    a 16-bit shift; int8 -> f32 a byte permute into the mantissa of 2^23
+//    and one subtraction;
+//  - scores: each lane takes a 16-byte partial dot product, reduced in
+//    log2(lanes per row) shuffles over the row's lanes; each group of
+//    lanes keeps its own online-softmax state over the rows it loads,
+//    merged once after the sweep;
 //  - split-S across a thread-block cluster: the grid is (b, kv-head,
 //    split) with a cluster of kSplit = 8 blocks along the split; each
 //    block takes ceil(len / 8) positions rounded up to its 64 rows per
-//    iteration, so short and long rows both spread over 8 SMs (llama-2-7b
-//    at B=8: 2,048 blocks instead of 256).  Each block leaves its merged
-//    (m, l, acc[g][hd]) in shared memory; after a cluster barrier rank 0
-//    reads the 8 partials through distributed shared memory in rank
-//    order and writes o.  One launch per call, no scratch in device
-//    memory, no state between calls, and a fixed merge order: repeated
-//    calls give identical bits.  A block with no positions contributes
-//    l = 0.
+//    iteration, so short and long rows both spread over 8 SMs (qwen3-0.6b
+//    at B=8: 512 blocks instead of 64; llama-2-7b: 2,048 instead of 256).
+//    Each block leaves its merged (m, l, acc[g][hd]) in shared memory;
+//    after a cluster barrier rank 0 reads the 8 partials through
+//    distributed shared memory in rank order and writes o.  One launch
+//    per call, no scratch in device memory, no state between calls, and
+//    a fixed merge order: repeated calls give identical bits.  A block
+//    with no positions contributes l = 0.
+//
+// dec_fwd (float32 cache; checked on the card, launched on no serving
+// path): one block per (b, kv-head), so the g query rows of a group share
+// every K/V byte read; the sweep stops at min(kv_len[b], S); each warp
+// streams its own 8-key chunks with the 32 lanes on consecutive head_dim
+// elements, keeps its own online-softmax state, and the 4 warps merge once
+// at the end through shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,13 +83,12 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
-constexpr int kChunk = 8;  // keys per warp step (float modes)
+constexpr int kChunk = 8;  // keys per warp step (dec_fwd)
 constexpr unsigned kFull = 0xffffffffu;
 
-// int8 mode (tests/test_torch_kernels.py reads kSplit, kWarps and
+// dec_split (tests/test_torch_kernels.py reads kSplit, kWarps and
 // kWarpRows from this file to hold the split on the CPU)
 constexpr int kSplit = 8;       // blocks (one cluster) per (b, kv-head)
-constexpr int kSeg = 16;        // int8 values per lane load: 16 bytes
 constexpr int kWarpRows = 16;   // cache rows per warp per iteration
 constexpr int kBlockRows = kWarps * kWarpRows;  // 64: a split's granule
 
@@ -121,12 +125,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// T: q/o/cache type (float or bf16)
-template <typename T, int HD, int G>
+template <int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
-    dec_fwd(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const int* __restrict__ kv_len,
-            T* __restrict__ o, int s, int kvh, float sm_scale) {
+    dec_fwd(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const int* __restrict__ kv_len,
+            float* __restrict__ o, int s, int kvh, float sm_scale) {
   constexpr int E = HD / 32;  // head_dim elements per lane: lane*E + i
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
@@ -139,9 +142,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   len = none ? s : min(len, s);
 
   const long row = (long)kvh * HD;  // stride between cache positions
-  const T* kb = k + (long)b * s * row + (long)kh * HD + lane * E;
-  const T* vb = v + (long)b * s * row + (long)kh * HD + lane * E;
-  const T* qb = q + ((long)b * kvh * G + (long)kh * G) * HD + lane * E;
+  const float* kb = k + (long)b * s * row + (long)kh * HD + lane * E;
+  const float* vb = v + (long)b * s * row + (long)kh * HD + lane * E;
+  const float* qb = q + ((long)b * kvh * G + (long)kh * G) * HD + lane * E;
 
   float qr[G][E], m[G], l[G], acc[G][E];
 #pragma unroll
@@ -228,7 +231,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int i = 0; i < E; ++i) sm_acc[warp][r][lane * E + i] = acc[r][i];
   }
   __syncthreads();
-  T* ob = o + ((long)b * kvh * G + (long)kh * G) * HD;
+  float* ob = o + ((long)b * kvh * G + (long)kh * G) * HD;
   for (int e = threadIdx.x; e < G * HD; e += kWarps * 32) {
     const int r = e / HD, d = e % HD;
     float mx = kNegInf;
@@ -241,7 +244,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       den += sm_l[w][r] * c;
       num += sm_acc[w][r][d] * c;
     }
-    store(&ob[r * HD + d], num / fmaxf(den, 1e-20f));
+    ob[r * HD + d] = num / fmaxf(den, 1e-20f);
   }
 }
 
@@ -257,28 +260,61 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
 }
 
-__device__ __forceinline__ void i8x16_to_f32(int4 w, float* f) {
-  i8x4_to_f32((uint32_t)w.x, f);
-  i8x4_to_f32((uint32_t)w.y, f + 4);
-  i8x4_to_f32((uint32_t)w.z, f + 8);
-  i8x4_to_f32((uint32_t)w.w, f + 12);
+// Two bf16 values packed in a word (element 0 in the low half) -> f32,
+// exactly: a bf16 is the high half of the f32 with the same value.
+__device__ __forceinline__ void bf16x2_to_f32(uint32_t w, float* f) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xffff0000u);
 }
 
-// T: q/o type (float or bf16).  The grid is B * KV * kSplit blocks in
-// clusters of kSplit; cluster rank = the block's split of S.
-template <typename T, int HD, int G>
+// One 16-byte lane load of a cached row, by cache element: the values it
+// holds, their conversion to f32, and whether rows carry bf16 scales.
+template <typename C>
+struct CacheSeg;
+
+template <>
+struct CacheSeg<int8_t> {
+  static constexpr int kVals = 16;
+  static constexpr bool kScaled = true;
+  static __device__ __forceinline__ void to_f32(int4 w, float* f) {
+    i8x4_to_f32((uint32_t)w.x, f);
+    i8x4_to_f32((uint32_t)w.y, f + 4);
+    i8x4_to_f32((uint32_t)w.z, f + 8);
+    i8x4_to_f32((uint32_t)w.w, f + 12);
+  }
+};
+
+template <>
+struct CacheSeg<__nv_bfloat16> {
+  static constexpr int kVals = 8;
+  static constexpr bool kScaled = false;
+  static __device__ __forceinline__ void to_f32(int4 w, float* f) {
+    bf16x2_to_f32((uint32_t)w.x, f);
+    bf16x2_to_f32((uint32_t)w.y, f + 2);
+    bf16x2_to_f32((uint32_t)w.z, f + 4);
+    bf16x2_to_f32((uint32_t)w.w, f + 6);
+  }
+};
+
+// T: q/o type (float or bf16); C: cache element (int8_t with bf16 scales,
+// or bf16 without; k_scale/v_scale are then not read).  The grid is
+// B * KV * kSplit blocks in clusters of kSplit; cluster rank = the
+// block's split of S.
+template <typename T, typename C, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
-    dec_int8_split(const T* __restrict__ q, const int8_t* __restrict__ k,
-                   const int8_t* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ k_scale,
-                   const __nv_bfloat16* __restrict__ v_scale,
-                   const int* __restrict__ kv_len, T* __restrict__ o, int s,
-                   int kvh, float sm_scale) {
-  constexpr int LPR = HD / kSeg;      // lanes per cached row: 2, 4 or 8
-  constexpr int RPL = 32 / LPR;       // rows per warp load: 16, 8 or 4
+    dec_split(const T* __restrict__ q, const C* __restrict__ k,
+              const C* __restrict__ v,
+              const __nv_bfloat16* __restrict__ k_scale,
+              const __nv_bfloat16* __restrict__ v_scale,
+              const int* __restrict__ kv_len, T* __restrict__ o, int s,
+              int kvh, float sm_scale) {
+  using Seg = CacheSeg<C>;
+  constexpr int SEG = Seg::kVals;     // values per lane load: 16 bytes
+  constexpr int LPR = HD / SEG;       // lanes per cached row
+  constexpr int RPL = 32 / LPR;       // rows per warp load
   constexpr int U = kWarpRows / RPL;  // loads of K (and of V) per step
   // q in registers for up to 4 query rows a kv-head, else in shared
-  // memory (16 f32 of q and 16 of acc per row and lane)
+  // memory (SEG f32 of q and SEG of acc per row and lane)
   constexpr bool kQReg = G <= 4;
   __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][HD];
@@ -303,32 +339,31 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int start = min(rank * chunk, len);
   const int end = min(start + chunk, len);
 
-  const long row = (long)kvh * HD;  // bytes between cache positions
-  const int8_t* kb = k + (long)b * s * row + (long)kh * HD + seg * kSeg;
-  const int8_t* vb = v + (long)b * s * row + (long)kh * HD + seg * kSeg;
+  const long row = (long)kvh * HD;  // elements between cache positions
+  const C* kb = k + (long)b * s * row + (long)kh * HD + seg * SEG;
+  const C* vb = v + (long)b * s * row + (long)kh * HD + seg * SEG;
   // scales of position 0 of this (b, kv-head); position c is c * kvh on
-  const __nv_bfloat16* ksb = k_scale + (long)b * s * kvh + kh;
-  const __nv_bfloat16* vsb = v_scale + (long)b * s * kvh + kh;
+  const long sc0 = (long)b * s * kvh + kh;
   const T* qb = q + ((long)b * kvh * G + (long)kh * G) * HD;
 
-  float qr[kQReg ? G : 1][kSeg];
+  float qr[kQReg ? G : 1][SEG];
   if constexpr (kQReg) {
 #pragma unroll
     for (int r = 0; r < G; ++r)
-      load_row<kSeg>(qb + r * HD + seg * kSeg, qr[r]);
+      load_row<SEG>(qb + r * HD + seg * SEG, qr[r]);
   } else {
     for (int e = threadIdx.x; e < G * HD; e += kWarps * 32)
       sm_q[e / HD][e % HD] = to_f32(qb[e]);
     __syncthreads();
   }
 
-  float m[G], l[G], acc[G][kSeg];
+  float m[G], l[G], acc[G][SEG];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kSeg; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < SEG; ++i) acc[r][i] = 0.f;
   }
 
   // warp w takes rows [base, base + 16) of each 64-row step; load u of
@@ -342,8 +377,10 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (c < end) {
         kr[u] = __ldg(reinterpret_cast<const int4*>(kb + c * row));
         vr[u] = __ldg(reinterpret_cast<const int4*>(vb + c * row));
-        ksc[u] = __bfloat162float(ksb[(long)c * kvh]);
-        vsc[u] = __bfloat162float(vsb[(long)c * kvh]);
+        if constexpr (Seg::kScaled) {
+          ksc[u] = __bfloat162float(k_scale[sc0 + (long)c * kvh]);
+          vsc[u] = __bfloat162float(v_scale[sc0 + (long)c * kvh]);
+        }
       } else {
         kr[u] = vr[u] = make_int4(0, 0, 0, 0);
         ksc[u] = vsc[u] = 0.f;
@@ -352,17 +389,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     float sc[G][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[kSeg];
-      i8x16_to_f32(kr[u], kf);
+      float kf[SEG];
+      Seg::to_f32(kr[u], kf);
 #pragma unroll
       for (int r = 0; r < G; ++r) {
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < kSeg; ++i) {
+        for (int i = 0; i < SEG; ++i) {
           if constexpr (kQReg) {
             dot += qr[r][i] * kf[i];
           } else {
-            dot += sm_q[r][seg * kSeg + i] * kf[i];
+            dot += sm_q[r][seg * SEG + i] * kf[i];
           }
         }
         sc[r][u] = dot;
@@ -377,13 +414,17 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int u = 0; u < U; ++u)
           sc[r][u] += __shfl_xor_sync(kFull, sc[r][u], off);
 
-    float pw[G][U];  // softmax weight times the V row's scale
+    float pw[G][U];  // softmax weight (times the V row's scale)
 #pragma unroll
     for (int r = 0; r < G; ++r) {
       float m_tile = kNegInf;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        sc[r][u] = none ? kNegInf : sc[r][u] * ksc[u] * sm_scale;
+        if constexpr (Seg::kScaled) {
+          sc[r][u] = none ? kNegInf : sc[r][u] * ksc[u] * sm_scale;
+        } else {
+          sc[r][u] = none ? kNegInf : sc[r][u] * sm_scale;
+        }
         if (base + u * RPL + rg < end) m_tile = fmaxf(m_tile, sc[r][u]);
       }
       const float m_new = fmaxf(m[r], m_tile);
@@ -394,21 +435,25 @@ __global__ void __launch_bounds__(kWarps * 32)
         const float p =
             (base + u * RPL + rg < end) ? expf(sc[r][u] - m_new) : 0.f;
         psum += p;
-        pw[r][u] = p * vsc[u];
+        if constexpr (Seg::kScaled) {
+          pw[r][u] = p * vsc[u];
+        } else {
+          pw[r][u] = p;
+        }
       }
 #pragma unroll
-      for (int i = 0; i < kSeg; ++i) acc[r][i] *= alpha;
+      for (int i = 0; i < SEG; ++i) acc[r][i] *= alpha;
       l[r] = l[r] * alpha + psum;
       m[r] = m_new;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float vf[kSeg];
-      i8x16_to_f32(vr[u], vf);
+      float vf[SEG];
+      Seg::to_f32(vr[u], vf);
 #pragma unroll
       for (int r = 0; r < G; ++r)
 #pragma unroll
-        for (int i = 0; i < kSeg; ++i) acc[r][i] += pw[r][u] * vf[i];
+        for (int i = 0; i < SEG; ++i) acc[r][i] += pw[r][u] * vf[i];
     }
   }
 
@@ -423,7 +468,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float a = expf(m[r] - mx), c = expf(mo - mx);
       l[r] = l[r] * a + lo * c;
 #pragma unroll
-      for (int i = 0; i < kSeg; ++i)
+      for (int i = 0; i < SEG; ++i)
         acc[r][i] =
             acc[r][i] * a + __shfl_xor_sync(kFull, acc[r][i], off) * c;
       m[r] = mx;
@@ -432,8 +477,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int r = 0; r < G; ++r) {
 #pragma unroll
-      for (int i = 0; i < kSeg; ++i)
-        sm_acc[warp][r][seg * kSeg + i] = acc[r][i];
+      for (int i = 0; i < SEG; ++i)
+        sm_acc[warp][r][seg * SEG + i] = acc[r][i];
       if (seg == 0) {
         sm_m[warp][r] = m[r];
         sm_l[warp][r] = l[r];
@@ -485,12 +530,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   cluster.sync();  // rank 0 has read every partial: shared memory may go
 }
 
-template <typename T, int HD, int G>
-cudaError_t launch_int8(const T* q, const int8_t* k, const int8_t* v,
-                        const __nv_bfloat16* k_scale,
-                        const __nv_bfloat16* v_scale, const int* kv_len,
-                        T* o, int b, int s, int kvh, float scale,
-                        cudaStream_t stream) {
+template <typename T, typename C, int HD, int G>
+cudaError_t launch_split(const T* q, const C* k, const C* v,
+                         const __nv_bfloat16* k_scale,
+                         const __nv_bfloat16* v_scale, const int* kv_len,
+                         T* o, int b, int s, int kvh, float scale,
+                         cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long)b * kvh * kSplit));
   cfg.blockDim = dim3(kWarps * 32);
@@ -504,95 +549,44 @@ cudaError_t launch_int8(const T* q, const int8_t* k, const int8_t* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, dec_int8_split<T, HD, G>, q, k, v, k_scale, v_scale, kv_len, o,
-      s, kvh, scale);
+      &cfg, dec_split<T, C, HD, G>, q, k, v, k_scale, v_scale, kv_len, o, s,
+      kvh, scale);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* kv_len,
-                      T* o, int b, int s, int kvh, int g, float scale,
-                      cudaStream_t stream) {
-  const dim3 grid((unsigned)(b * kvh)), block(kWarps * 32);
+template <typename T, typename C, int HD>
+cudaError_t launch_split_hd(const T* q, const C* k, const C* v,
+                            const __nv_bfloat16* ks,
+                            const __nv_bfloat16* vs, const int* kv_len,
+                            T* o, int b, int s, int kvh, int g, float scale,
+                            cudaStream_t stream) {
   switch (g) {
     case 1:
-      dec_fwd<T, HD, 1><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
-                                                    kvh, scale);
-      break;
+      return launch_split<T, C, HD, 1>(q, k, v, ks, vs, kv_len, o, b, s,
+                                       kvh, scale, stream);
     case 2:
-      dec_fwd<T, HD, 2><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
-                                                    kvh, scale);
-      break;
+      return launch_split<T, C, HD, 2>(q, k, v, ks, vs, kv_len, o, b, s,
+                                       kvh, scale, stream);
     case 4:
-      dec_fwd<T, HD, 4><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
-                                                    kvh, scale);
-      break;
+      return launch_split<T, C, HD, 4>(q, k, v, ks, vs, kv_len, o, b, s,
+                                       kvh, scale, stream);
     case 8:
-      dec_fwd<T, HD, 8><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s,
-                                                    kvh, scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
-cudaError_t launch_int8_hd(const T* q, const int8_t* k, const int8_t* v,
-                           const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-                           const int* kv_len, T* o, int b, int s, int kvh,
-                           int g, float scale, cudaStream_t stream) {
-  switch (g) {
-    case 1:
-      return launch_int8<T, HD, 1>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
-                                   scale, stream);
-    case 2:
-      return launch_int8<T, HD, 2>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
-                                   scale, stream);
-    case 4:
-      return launch_int8<T, HD, 4>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
-                                   scale, stream);
-    case 8:
-      return launch_int8<T, HD, 8>(q, k, v, ks, vs, kv_len, o, b, s, kvh,
-                                   scale, stream);
+      return launch_split<T, C, HD, 8>(q, k, v, ks, vs, kv_len, o, b, s,
+                                       kvh, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, void* o, int b, int s, int h, int kvh,
-                   int hd, cudaStream_t stream) {
+// dec_split over a cache of C (k_scale/v_scale only for int8)
+template <typename T, typename C>
+cudaError_t launch_split_t(const void* q, const void* k, const void* v,
+                           const void* k_scale, const void* v_scale,
+                           const int* kv_len, void* o, int b, int s, int h,
+                           int kvh, int hd, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-  const int g = h / kvh;
-  const float scale = 1.f / sqrtf((float)hd);
-  switch (hd) {
-    case 32:
-      return launch_hd<T, 32>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
-                              stream);
-    case 64:
-      return launch_hd<T, 64>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
-                              stream);
-    case 128:
-      return launch_hd<T, 128>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
-                               stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t launch_int8_t(const void* q, const void* k, const void* v,
-                          const void* k_scale, const void* v_scale,
-                          const int* kv_len, void* o, int b, int s, int h,
-                          int kvh, int hd, cudaStream_t stream) {
-  const T* qp = static_cast<const T*>(q);
-  const int8_t* kp = static_cast<const int8_t*>(k);
-  const int8_t* vp = static_cast<const int8_t*>(v);
+  const C* kp = static_cast<const C*>(k);
+  const C* vp = static_cast<const C*>(v);
   const __nv_bfloat16* ks = static_cast<const __nv_bfloat16*>(k_scale);
   const __nv_bfloat16* vs = static_cast<const __nv_bfloat16*>(v_scale);
   T* op = static_cast<T*>(o);
@@ -600,14 +594,66 @@ cudaError_t launch_int8_t(const void* q, const void* k, const void* v,
   const float scale = 1.f / sqrtf((float)hd);
   switch (hd) {
     case 32:
-      return launch_int8_hd<T, 32>(qp, kp, vp, ks, vs, kv_len, op, b, s,
-                                   kvh, g, scale, stream);
+      return launch_split_hd<T, C, 32>(qp, kp, vp, ks, vs, kv_len, op, b, s,
+                                       kvh, g, scale, stream);
     case 64:
-      return launch_int8_hd<T, 64>(qp, kp, vp, ks, vs, kv_len, op, b, s,
-                                   kvh, g, scale, stream);
+      return launch_split_hd<T, C, 64>(qp, kp, vp, ks, vs, kv_len, op, b, s,
+                                       kvh, g, scale, stream);
     case 128:
-      return launch_int8_hd<T, 128>(qp, kp, vp, ks, vs, kv_len, op, b, s,
-                                    kvh, g, scale, stream);
+      return launch_split_hd<T, C, 128>(qp, kp, vp, ks, vs, kv_len, op, b,
+                                        s, kvh, g, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int HD>
+cudaError_t launch_fwd_hd(const float* q, const float* k, const float* v,
+                          const int* kv_len, float* o, int b, int s, int kvh,
+                          int g, float scale, cudaStream_t stream) {
+  const dim3 grid((unsigned)(b * kvh)), block(kWarps * 32);
+  switch (g) {
+    case 1:
+      dec_fwd<HD, 1><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s, kvh,
+                                                 scale);
+      break;
+    case 2:
+      dec_fwd<HD, 2><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s, kvh,
+                                                 scale);
+      break;
+    case 4:
+      dec_fwd<HD, 4><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s, kvh,
+                                                 scale);
+      break;
+    case 8:
+      dec_fwd<HD, 8><<<grid, block, 0, stream>>>(q, k, v, kv_len, o, s, kvh,
+                                                 scale);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const int* kv_len, void* o, int b, int s, int h,
+                       int kvh, int hd, cudaStream_t stream) {
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
+  const int g = h / kvh;
+  const float scale = 1.f / sqrtf((float)hd);
+  switch (hd) {
+    case 32:
+      return launch_fwd_hd<32>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
+                               stream);
+    case 64:
+      return launch_fwd_hd<64>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
+                               stream);
+    case 128:
+      return launch_fwd_hd<128>(qp, kp, vp, kv_len, op, b, s, kvh, g, scale,
+                                stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -615,8 +661,8 @@ cudaError_t launch_int8_t(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of q, k, v and o).  Returns the
-// cudaError_t of the launch.
+// dtype: 0 = float32 (dec_fwd), 1 = bfloat16 (dec_split), of q, k, v and
+// o.  Returns the cudaError_t of the launch.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* kv_len,
                                       void* o, int b, int s, int h, int kvh,
@@ -626,10 +672,10 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, lens, o, b, s, h, kvh, hd, st);
+    return (int)launch_fwd(q, k, v, lens, o, b, s, h, kvh, hd, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, lens, o, b, s, h, kvh, hd,
-                                      st);
+    return (int)launch_split_t<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, nullptr, nullptr, lens, o, b, s, h, kvh, hd, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -645,10 +691,10 @@ extern "C" int repro_decode_attention_int8(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
   if (dtype == 0)
-    return (int)launch_int8_t<float>(q, k, v, k_scale, v_scale, lens, o, b,
-                                     s, h, kvh, hd, st);
+    return (int)launch_split_t<float, int8_t>(q, k, v, k_scale, v_scale,
+                                              lens, o, b, s, h, kvh, hd, st);
   if (dtype == 1)
-    return (int)launch_int8_t<__nv_bfloat16>(q, k, v, k_scale, v_scale,
-                                             lens, o, b, s, h, kvh, hd, st);
+    return (int)launch_split_t<__nv_bfloat16, int8_t>(
+        q, k, v, k_scale, v_scale, lens, o, b, s, h, kvh, hd, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,9 +12,11 @@ int8 caches with per-token-per-head bf16 scales ``k_scale``/``v_scale``
 ``:98-111``).  The int8 mode returns q's dtype: for a bf16 q that is the
 Pallas kernel's bf16 output; for an f32 q the Pallas kernel also rounds
 through bf16, which this port leaves out so that the model's f32 decode
-matches the JAX model's (see ``csrc/decode_attention.cu``).  The two
-modes count their launches apart; each call is one launch (the int8
-mode's split of S over a cluster of 8 blocks merges inside that launch).
+matches the JAX model's (see ``csrc/decode_attention.cu``).  The
+float-cache and int8-cache modes count their launches apart; each call
+is one launch (for bf16 and int8 caches, the split of S over a cluster
+of 8 blocks merges inside that launch; f32 caches take one block per
+(b, kv-head)).
 """
 from __future__ import annotations
 

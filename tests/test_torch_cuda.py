@@ -149,9 +149,34 @@ def test_cuda_decode_int8_split_edges_match_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd", [(4, 2, 128), (8, 1, 64), (8, 8, 32)])
+def test_cuda_decode_bf16_split_edges_match_plain(cuda_device, h, kv, hd):
+    """kv_len at the edges of the bf16 cache's split of S (the kernel the
+    int8 cache takes: 8 blocks of ceil(len/8) positions rounded up to
+    64): 0 (all masked), 1, one block exactly full (64) and the next
+    taking one row (65), all 8 full (512) and the next granule (513), S
+    and past S; group sizes 2, 8 and 1."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    b, s = 12, 1100
+    q = _rand(g, cuda_device, torch.bfloat16, b, 1, h, hd)
+    k = _rand(g, cuda_device, torch.bfloat16, b, s, kv, hd)
+    v = _rand(g, cuda_device, torch.bfloat16, b, s, kv, hd)
+    lens = torch.tensor([0, 1, 63, 64, 65, 511, 512, 513, 1024, 1025, s,
+                         s + 900], dtype=torch.int32, device=cuda_device)
+    before, before_int8 = da.launches, da.launches_int8
+    out = da.decode_attention(q, k, v, lens)
+    assert (da.launches, da.launches_int8) == (before + 1, before_int8)
+    torch.testing.assert_close(
+        out.float(), da.decode_attention_plain(q, k, v, lens).float(),
+        rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_redesigned_kernels_repeat_bit_for_bit(cuda_device):
-    """Two calls on the same inputs give identical bits: the int8 mode
-    merges its splits in a fixed order, flash has no cross-block sum."""
+    """Two calls on the same inputs give identical bits: the bf16 and
+    int8 decode modes merge their splits in a fixed order, flash has no
+    cross-block sum, the scan sums each step's lanes in a fixed order."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q = _rand(g, cuda_device, torch.bfloat16, 8, 1, 32, 128)
     k, ks = _int8_cache(g, cuda_device, 8, 2048, 32, 128)
@@ -166,6 +191,16 @@ def test_cuda_redesigned_kernels_repeat_bit_for_bit(cuda_device):
     v = _rand(g, cuda_device, torch.bfloat16, 1, 300, 32, 128)
     assert torch.equal(fa.flash_attention(q, k, v),
                        fa.flash_attention(q, k, v))
+    q = _rand(g, cuda_device, torch.bfloat16, 8, 1, 16, 128)
+    k = _rand(g, cuda_device, torch.bfloat16, 8, 1024, 8, 128)
+    v = _rand(g, cuda_device, torch.bfloat16, 8, 1024, 8, 128)
+    lens = torch.tensor([874, 341, 201, 376, 482, 853, 517, 1100],
+                        dtype=torch.int32, device=cuda_device)
+    assert torch.equal(da.decode_attention(q, k, v, lens),
+                       da.decode_attention(q, k, v, lens))
+    args = _scan_inputs(g, cuda_device, 1, 1017, 8192, 16, torch.bfloat16)
+    (y1, h1), (y2, h2) = (ms.mamba_scan(*args) for _ in range(2))
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 @pytest.mark.cuda
@@ -229,6 +264,31 @@ def test_cuda_mamba_scan_matches_plain(cuda_device, act_dtype):
         y, hf = ms.mamba_scan(*args)
         assert ms.launches == before + 1
         assert y.dtype == act_dtype and hf.dtype == torch.float32
+        y_ref, h_ref = ms.mamba_scan_plain(*args)
+        tol = 1e-4 if act_dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol,
+                                   atol=tol)
+        scale = float(h_ref.abs().max())
+        torch.testing.assert_close(hf, h_ref, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1.0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba_scan_ragged_s_matches_plain(cuda_device, act_dtype):
+    """S ragged against the kernel's 64-step chunks (1, 31, 33, 65, 1017)
+    at falcon-mamba-7b's width with a random a_log per (channel, state),
+    and the element-by-element staging: di=100 (bf16 rows of 200 bytes,
+    not 16-byte multiples) with d_state 4 at B=2, S=33 (the second
+    sequence's b and c off 16-byte alignment).  Tolerances as in
+    test_cuda_mamba_scan_matches_plain."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    for b, s, di, ds in ((1, 1, 8192, 16), (1, 31, 8192, 16),
+                         (1, 33, 8192, 16), (1, 65, 8192, 16),
+                         (1, 1017, 8192, 16), (2, 33, 100, 4)):
+        args = _scan_inputs(g, cuda_device, b, s, di, ds, act_dtype)
+        y, hf = ms.mamba_scan(*args)
         y_ref, h_ref = ms.mamba_scan_plain(*args)
         tol = 1e-4 if act_dtype == torch.float32 else 2e-2
         torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol,

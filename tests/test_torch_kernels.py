@@ -191,23 +191,27 @@ def test_decode_int8_plain_is_the_dequantized_float_mode():
 
 
 def _cu_int(name):
-    """An integer constant of the int8 kernel's source."""
+    """An integer constant of the decode kernels' source."""
     src = (pathlib.Path(da.__file__).parent / "csrc"
            / "decode_attention.cu").read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-def _int8_split_merge(q, k, v, k_scale, v_scale, lens, n_split, granule):
-    """The int8 kernel's algorithm (``dec_int8_split``) in plain f32
-    torch: block ``rank`` of ``n_split`` sweeps positions [rank * chunk,
-    (rank + 1) * chunk) of min(kv_len, S) -- all S, masked, for kv_len
-    below 1 -- with chunk = ceil(len / n_split) rounded up to
-    ``granule``, and leaves (m, l, acc); the partials are merged in rank
-    order.  Returns the output and each row's partials' l."""
+def _split_merge(q, k, v, lens, n_split, granule, k_scale=None,
+                 v_scale=None):
+    """The split kernel's algorithm (``dec_split``) in plain f32 torch,
+    over a bf16 cache or an int8 one with its scales: block ``rank`` of
+    ``n_split`` sweeps positions [rank * chunk, (rank + 1) * chunk) of
+    min(kv_len, S) -- all S, masked, for kv_len below 1 -- with chunk =
+    ceil(len / n_split) rounded up to ``granule``, and leaves (m, l,
+    acc); the partials are merged in rank order.  Returns the output and
+    each row's partials' l."""
     b, _, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
-    kf = k.float() * k_scale.float()[..., None]
-    vf = v.float() * v_scale.float()[..., None]
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+        vf = vf * v_scale.float()[..., None]
     out, ls = torch.empty(b, 1, h, hd), []
     for bi in range(b):
         n = int(lens[bi])
@@ -236,29 +240,37 @@ def _int8_split_merge(q, k, v, k_scale, v_scale, lens, n_split, granule):
     return out, ls
 
 
+@pytest.mark.parametrize("cache", ["int8", "bfloat16"])
 @pytest.mark.parametrize("lens", [
     [0, 1, 63, 64, 65],          # all masked; one block exactly full
     [255, 256, 257, 511, 512],   # a block's tail; all 8 blocks full
     [513, 575, 576, 600, 900],   # the next granule; S; past S
 ])
-def test_decode_int8_split_merge_matches_plain(lens):
-    """The int8 kernel's split-and-merge algorithm, written here in plain
-    torch with the kernel's constants (8 blocks per cluster, 64-row
-    granule), equals the plain version at the split's edges; empty
-    blocks contribute l = 0.  This holds the algorithm, not the kernel:
-    the kernel itself is held at these edges by
-    ``test_torch_cuda.py::test_cuda_decode_int8_split_edges_match_plain``."""
+def test_decode_int8_split_merge_matches_plain(lens, cache):
+    """The split kernel's split-and-merge algorithm, for the int8 cache
+    and the bf16 cache alike, written here in plain torch with the
+    kernel's constants (8 blocks per cluster, 64-row granule), equals the
+    plain version at the split's edges; empty blocks contribute l = 0.
+    This holds the algorithm, not the kernel: the kernel itself is held
+    at these edges by ``test_torch_cuda.py``'s
+    ``test_cuda_decode_int8_split_edges_match_plain`` and
+    ``test_cuda_decode_bf16_split_edges_match_plain``."""
     n_split = _cu_int("kSplit")
     granule = _cu_int("kWarps") * _cu_int("kWarpRows")
     assert (n_split, granule) == (8, 64)
     rng = np.random.default_rng(6)
     b, s, h, kv, hd = len(lens), 600, 4, 2, 32
-    _, (k, ks) = _int8_pair(rng, (b, s, kv, hd))
-    _, (v, vs) = _int8_pair(rng, (b, s, kv, hd))
+    if cache == "int8":
+        _, (k, ks) = _int8_pair(rng, (b, s, kv, hd))
+        _, (v, vs) = _int8_pair(rng, (b, s, kv, hd))
+    else:
+        (_, k), (_, v) = (_pair(rng, (b, s, kv, hd), cache)
+                          for _ in range(2))
+        ks = vs = None
     q = torch.from_numpy(rng.standard_normal((b, 1, h, hd)).astype(
         np.float32))
     lens_t = torch.tensor(lens, dtype=torch.int32)
-    got, ls = _int8_split_merge(q, k, v, ks, vs, lens_t, n_split, granule)
+    got, ls = _split_merge(q, k, v, lens_t, n_split, granule, ks, vs)
     want = da.decode_attention_plain(q, k, v, lens_t, ks, vs)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     for n, row in zip(lens, ls):

@@ -14,6 +14,9 @@ chunk leaves the function unchanged), so ragged lengths are held to the
 reference too.  The CUDA kernel itself is checked on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 import dataclasses
+import math
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -102,6 +105,66 @@ def test_scan_plain_ragged_matches_reference(s):
                               jnp.zeros((2, 128, 8)))
     np.testing.assert_allclose(_np(y), _np(yr), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(_np(hf), _np(hr), rtol=TOL, atol=TOL)
+
+
+def _cu_int(name):
+    """An integer constant of the scan kernel's source."""
+    src = (pathlib.Path(ms.__file__).parent / "csrc"
+           / "mamba_scan.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _scan_lanes(xc, dt, b, c, a_log, d, lanes, group):
+    """The scan kernel's algorithm in plain f32 torch: the d_state states
+    of a channel split over ``lanes`` lanes (ds / lanes consecutive states
+    each, summed in order into the lane's part of y, lane 0 starting from
+    d * x); exp(dt * a) as exp2(dt * (a * log2 e)); each lane's parts of a
+    ``group``-step group kept and reduced over the lanes once per group,
+    in the kernel's reduce-scatter order ((p0 + p2) + (p1 + p3))."""
+    assert lanes == 4
+    bsz, s, di = xc.shape
+    ds = b.shape[2]
+    ns = ds // lanes
+    a2 = -torch.exp(a_log) * math.log2(math.e)               # [di,ds]
+    dsel = torch.zeros(lanes, di)
+    dsel[0] = d
+    h = torch.zeros(bsz, di, ds)
+    ys = []
+    for t0 in range(0, s, group):
+        parts = []                                   # [B,lanes,di] a step
+        for t in range(t0, min(t0 + group, s)):
+            x_t, dt_t = xc[:, t], dt[:, t]                    # [B,di]
+            h = torch.exp2(dt_t[..., None] * a2) * h \
+                + (dt_t * x_t)[..., None] * b[:, t, None, :]
+            hc = (h * c[:, t, None, :]).reshape(bsz, di, lanes, ns)
+            p = dsel.T[None] * x_t[..., None]                # [B,di,lanes]
+            for j in range(ns):
+                p = p + hc[..., j]
+            parts.append(p)
+        p = torch.stack(parts, 1)                     # [B,steps,di,lanes]
+        ys.append((p[..., 0] + p[..., 2]) + (p[..., 1] + p[..., 3]))
+    return torch.cat(ys, 1), h
+
+
+@pytest.mark.parametrize("s,ds", [(1, 16), (64, 8), (150, 16), (97, 4)])
+def test_scan_lane_partition_matches_plain_and_reference(s, ds):
+    """The scan kernel's lane partition, exp2 and per-group reduction
+    (its constants read from ``mamba_scan.cu``), in plain torch, against
+    the plain version and the JAX reference with a random a_log per
+    (channel, state), S one step, a multiple of the kernel's 8-step
+    groups and 64-step chunks, and ragged against both: 1e-5.  This
+    holds the algorithm, not the kernel: the kernel is held on the card
+    by ``test_torch_cuda.py``."""
+    lanes, group = _cu_int("kLanes"), _cu_int("kGroup")
+    assert (lanes, group) == (4, 8)
+    pairs = _scan_inputs(np.random.default_rng(s), 2, s, 24, ds)
+    tx = [p[1] for p in pairs]
+    y, hf = _scan_lanes(*tx, lanes, group)
+    y_plain, h_plain = ms.mamba_scan_plain(*tx)
+    yr, hr = ref_ms.reference(*(p[0] for p in pairs), jnp.zeros((2, 24, ds)))
+    for got, want in ((y, y_plain), (hf, h_plain), (y, yr), (hf, hr)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_scan_wrapper_refuses_other_devices():
