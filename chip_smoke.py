@@ -45,18 +45,36 @@ Phases, in order; any failure raises and the process exits non-zero:
      weights) on two ``LLMInstance`` engines through the port's
      ``serve_engine``, with the kernels' launch counts read around that
      run alone;
+  5b. the router's learning path at the reference CLI's sizes (the
+     router's full width): the length predictor (seq 64, d 64, 4 heads,
+     2 layers, 8 buckets) trained on the card by
+     ``quick_bucket_predictor`` (2000 samples, 2 epochs), its accuracy,
+     train-step and 16-row micro-batch forward times, its logits on 512
+     prompts against a CPU copy (1e-4, buckets equal); the decomposed
+     DQN router trained on the card by ``_train_quick_agent`` (4
+     instances on the V100 profile, 400 requests at 2.5/s, 8 episodes,
+     batch 512, buffer 200,000), ms per act and per learn step, and the
+     Q-values of 256 of its states against a CPU copy (Q_TOL); its
+     checkpoint written and restored through ``restore_rl_policy``, every
+     leaf bit-equal; then ``serve_sim`` with the trained router and
+     ``serve_gateway --backend py`` with the learned predictor in the
+     loop, under the restored router and under mixing, on the same
+     400-request stream, each writing a Chrome trace (validated) and a
+     metrics file under ``build/``; the kernels' launch counts read
+     around the phase (none of them runs there);
   6. the serving gateway: full-width llama-2-7b (32 layers, bf16, seeded
      random weights) on two engines with int8 KV caches (8 slots x 2048
      tokens), one seeded stream of 24 requests served through the port's
-     ``serve_gateway`` under the RL policy (a seeded decomposed
-     Q-network on the card, held against the same network on the CPU)
-     and under the mixing heuristic, with the launch counts read around
-     each run, one decode step and one prefill profiled per policy;
+     ``serve_gateway`` under the RL policy (phase 5b's trained router,
+     restored from its checkpoint by ``restore_rl_policy``, held against
+     the same network on the CPU) and under the mixing heuristic, with
+     the launch counts read around each run, one decode step and one
+     prefill profiled per policy;
   7. the gateway over full-width falcon-mamba-7b (64 Mamba-1 layers,
      bf16, seeded random weights) on two engines x 8 slots, one seeded
      stream of 16 requests served through ``serve_gateway`` under the RL
-     policy, with the launch counts read around that run, and one
-     decode step and one prefill profiled.
+     policy (phase 5b's restored router), with the launch counts read
+     around that run, and one decode step and one prefill profiled.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -68,6 +86,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -79,6 +98,7 @@ SRC = os.path.join(ROOT, "src")
 BF16_TOL, F32_TOL = 2e-2, 2e-5
 REDUCED_TOL = 1e-3
 Q_TOL = 1e-5                 # RL Q-values, card against CPU (TF32 off)
+PRED_TOL = 1e-4              # predictor logits, card against CPU
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 TIMING_RUNS = 30
@@ -697,6 +717,291 @@ def profile_prefill(torch, inst, prompt: int, kernel=None):
     return out
 
 
+# -- phase 5b: the router's learning path -------------------------------------
+
+# the reference CLI's router run: --instances 4 --requests 400 --rate 2.5
+# and its default --train-episodes
+ROUTER_ARGS = ["--instances", "4", "--requests", "400", "--rate", "2.5",
+               "--train-episodes", "8"]
+ROUTER_Q_STATES = 256
+
+
+def _median_ms(xs):
+    return statistics.median(xs) * 1e3 if xs else float("nan")
+
+
+def train_predictor(torch, np, m, prof):
+    """``quick_bucket_predictor`` on the card, its train steps timed
+    (synchronised), then its accuracy, the 16-row micro-batch forward
+    and its logits against a CPU copy."""
+    pred_lib, wl = m.pred_lib, m.wl
+    cfg = pred_lib.PredictorConfig()
+    step_s, losses = [], []
+    orig = pred_lib._train_step
+
+    def timed_step(*a, **kw):
+        t = time.perf_counter()
+        loss = orig(*a, **kw)
+        losses.append(float(loss))               # synchronises
+        step_s.append(time.perf_counter() - t)
+        return loss
+    pred_lib._train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        pred = pred_lib.quick_bucket_predictor(prof, n_train=2000,
+                                               epochs=2)
+        train_s = time.perf_counter() - t0
+    finally:
+        pred_lib._train_step = orig
+    per_epoch = len(step_s) // 2
+    epoch_loss = [losses[per_epoch - 1], losses[-1]]
+    acc = pred.accuracy(wl.generate(1000, seed=1234))
+    fresh = wl.generate(16 * 21, seed=77)
+    fwd_s = []
+    for i in range(21):
+        svc = m.MicroBatchPredictor(pred)
+        chunk = fresh[16 * i:16 * (i + 1)]
+        reqs = wl.to_requests(chunk, rate=1.0, seed=i)
+        t = time.perf_counter()
+        svc.prefetch(list(zip(reqs, chunk)))     # ends in a device->host copy
+        fwd_s.append(time.perf_counter() - t)
+        assert (svc.forwards, svc.misses) == (1, 16), svc.forwards
+    cpu = pred_lib.BucketPredictor(cfg, prof, device="cpu")
+    cpu.params.load_reference(pred.params.reference_tree())
+    samples = wl.generate(512, seed=4321)
+    lg, lc = pred.logits(samples), cpu.logits(samples)
+    err = float(np.abs(lg - lc).max())
+    assert np.isfinite(lg).all() and err <= PRED_TOL, err
+    # a bucket is decided wherever the top-two logit gap exceeds twice
+    # the error; there the card and the CPU must agree
+    top2 = np.sort(lc, -1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * err
+    same = lg.argmax(-1) == lc.argmax(-1)
+    assert same[decided].all(), np.flatnonzero(~same & decided)
+    res = dict(train_s=train_s, steps=len(step_s), epoch_loss=epoch_loss,
+               accuracy=acc, train_step_median_ms=_median_ms(step_s),
+               forward16_median_ms=_median_ms(fwd_s[1:]),
+               logits_max_abs_err=err, buckets_equal=int(same.sum()),
+               undecided=int((~decided).sum()))
+    log(f"  predictor (seq 64, d 64, 4 heads, 2 layers, 8 buckets): "
+        f"{len(step_s)} train steps of 128 in {train_s:.3f} s, loss per "
+        f"epoch {epoch_loss[0]:.4f} / {epoch_loss[1]:.4f}; accuracy "
+        f"{acc:.3f} on 1000 fresh samples; train step median "
+        f"{res['train_step_median_ms']:.3f} ms, 16-row micro-batch "
+        f"forward median {res['forward16_median_ms']:.3f} ms "
+        "(host clock, synchronised)")
+    log(f"  predictor logits, card vs CPU on 512 prompts: max abs err "
+        f"{err:.3e} (tol {PRED_TOL}); buckets equal in {int(same.sum())}"
+        f" of 512 ({int((~decided).sum())} within 2x the error of a tie)")
+    return pred, res
+
+
+def train_router(torch, np, m, prof):
+    """``_train_quick_agent`` on the card: acts and learn steps timed,
+    per-episode lines, and Q of 256 recorded states on a CPU copy."""
+    args = m.serve_mod.build_parser().parse_args(
+        ["--mode", "sim"] + ROUTER_ARGS)
+    rcfg = m.serve_mod._router_cfg(args)
+    agent = m.rl.make_agent(rcfg, device="cuda")
+    act_s, learn_s, states = [], [], []
+    act_batch, learn = agent.act_batch, agent.learn
+
+    def timed_act_batch(s, masks, **kw):
+        t = time.perf_counter()
+        a = act_batch(s, masks, **kw)            # ends in a .cpu() copy
+        act_s.append(time.perf_counter() - t)
+        states.append(np.asarray(s[0], np.float32))
+        return a
+
+    def timed_learn(sync=True):
+        before = agent.steps
+        t = time.perf_counter()
+        out = learn(sync)                        # reads the loss back
+        if agent.steps > before:
+            learn_s.append(time.perf_counter() - t)
+        return out
+    agent.act_batch, agent.learn = timed_act_batch, timed_learn
+    t0 = time.perf_counter()
+    try:
+        out = m.serve_mod._train_quick_agent(args, rcfg, prof, agent=agent)
+    finally:
+        del agent.act_batch, agent.learn
+    wall = time.perf_counter() - t0
+    assert out["agent"] is agent
+    hist = out["history"]
+    for h in hist:
+        assert h["n"] == 400, h
+        log(f"  episode {h['episode']}: ticks {h['ticks']}, e2e_mean "
+            f"{h['e2e_mean']:.3f} s, reward {h['reward']:.1f}, epsilon "
+            f"{h['epsilon']:.3f} (virtual clock, the router's model)")
+    decisions = sum(h["ticks"] for h in hist)
+    assert agent.steps == len(learn_s) > 0, (agent.steps, len(learn_s))
+    idx = np.linspace(0, len(states) - 1, ROUTER_Q_STATES).astype(int)
+    batch = np.stack([states[i] for i in idx])
+    q_card = m.dqn.q_values(agent.params, batch)
+    cpu = m.dqn.DQNAgent(agent.cfg, device="cpu")
+    cpu.from_reference(agent.params.reference_tree())
+    q_cpu = m.dqn.q_values(cpu.params, batch)
+    err = float(np.abs(q_card - q_cpu).max())
+    scale = float(np.abs(q_cpu).max())
+    assert np.isfinite(q_card).all() and err <= Q_TOL * max(scale, 1.0), (
+        err, scale)
+    res = dict(episodes=len(hist), decisions=decisions, wall_s=wall,
+               decisions_per_s=decisions / wall, learn_steps=agent.steps,
+               greedy_acts=len(act_s), act_median_ms=_median_ms(act_s),
+               learn_median_ms=_median_ms(learn_s),
+               learn_total_s=sum(learn_s), act_total_s=sum(act_s),
+               q_max_abs_err=err, q_scale=scale,
+               history=[{k: h[k] for k in ("episode", "ticks", "e2e_mean",
+                                           "reward", "epsilon")}
+                        for h in hist])
+    log(f"  router: {len(hist)} episodes, {decisions} decisions, "
+        f"{agent.steps} learn steps (batch {agent.cfg.batch_size}) in "
+        f"{wall:.3f} s wall: {decisions / wall:.1f} decisions/s; greedy "
+        f"act median {res['act_median_ms']:.3f} ms ({len(act_s)} acts, "
+        f"{sum(act_s):.3f} s), learn step median "
+        f"{res['learn_median_ms']:.3f} ms ({sum(learn_s):.3f} s); host "
+        "clock, synchronised")
+    log(f"  router Q on {ROUTER_Q_STATES} recorded states, card vs CPU: "
+        f"max abs err {err:.3e} (|Q| <= {scale:.3f}, tol {Q_TOL} x "
+        "max(|Q|, 1))")
+    return args, rcfg, agent, res, batch
+
+
+def profile_router(torch, np, m, pred, agent, states, pred_res, router_res):
+    """Device busy and idle share of the path's four host-bound steps,
+    each against its median wall from the timed runs: a predictor train
+    step (B=128), a 16-row predictor forward, a greedy act, a learn step
+    (after the checkpoint, so the extra steps change nothing saved)."""
+    cfg = pred.cfg
+    samples = m.wl.generate(144, seed=99)
+    tok = torch.from_numpy(np.stack([m.pred_lib.encode_sample(cfg, s)
+                                     for s in samples[:128]])).long()
+    tok = tok.to(pred.device)
+    lab = torch.tensor([pred.label(s) for s in samples[:128]],
+                       device=pred.device)
+    mask = np.ones(agent.cfg.n_actions, bool)
+
+    def train_step():
+        with torch.enable_grad():
+            m.pred_lib._train_step(pred.params, pred.opt, cfg, tok, lab)
+
+    def learn():
+        with torch.enable_grad():
+            agent.learn()
+    out = {}
+    for name, run, wall in (
+            ("predictor_train_step", train_step,
+             pred_res["train_step_median_ms"]),
+            ("predictor_forward16", lambda: pred.logits(samples[128:],
+                                                        chunk=16),
+             pred_res["forward16_median_ms"]),
+            ("act", lambda: agent.act_batch(states[:1], mask[None]),
+             router_res["act_median_ms"]),
+            ("learn_step", learn, router_res["learn_median_ms"])):
+        out[name] = profile_pass(torch, run, wall, name)
+    return out
+
+
+def router_phase(torch, np, m):
+    """Phase 5b: train the predictor and the router on the card, write
+    and restore the router's checkpoint, serve over the simulator.
+    Returns the launch counts, the results and the checkpoint
+    directory phases 6 and 7 restore from."""
+    prof = m.profiles.V100_LLAMA2_7B
+    build = os.path.join(ROOT, "build")
+    ckpt_dir = os.path.join(build, "router_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launches(m)
+    t_phase = time.perf_counter()
+    pred, pred_res = train_predictor(torch, np, m, prof)
+    args, rcfg, agent, router_res, states = train_router(torch, np, m,
+                                                         prof)
+    mgr = m.CheckpointManager(ckpt_dir)
+    try:
+        t0 = time.perf_counter()
+        mgr.save(router_res["episodes"], agent.state_dict(), sync=True)
+        save_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        mgr.close()
+    t0 = time.perf_counter()
+    policy = m.restore_rl_policy(rcfg, ckpt_dir, m=4)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    saved = m.flatten_tree(agent.state_dict())
+    got = m.flatten_tree(policy.agent.state_dict())
+    assert list(got) == list(saved)
+    assert all(got[k].dtype == v.dtype and got[k].shape == v.shape
+               and got[k].tobytes() == v.tobytes() for k, v in saved.items())
+    assert policy.agent.opt["step"].dtype == torch.int32
+    nbytes = sum(os.path.getsize(os.path.join(ckpt_dir, p))
+                 for p in os.listdir(ckpt_dir) if p.startswith("step_"))
+    log(f"  checkpoint: {len(saved)} leaves ({nbytes} bytes) saved in "
+        f"{save_ms:.1f} ms, restored through restore_rl_policy in "
+        f"{restore_ms:.1f} ms; every leaf bit-equal")
+    profiles = profile_router(torch, np, m, pred, agent, states, pred_res,
+                              router_res)
+    t0 = time.perf_counter()
+    sim_args = m.serve_mod.build_parser().parse_args(
+        ["--mode", "sim"] + ROUTER_ARGS)
+    sim = m.serve_mod.serve_sim(sim_args, agent=policy.agent)
+    sim_wall = time.perf_counter() - t0
+    assert sim["n"] == 400, sim
+    log(f"  serve_sim: {sim['n']} served in {sim_wall:.3f} s wall; "
+        f"e2e_mean {sim['e2e_mean']:.3f} s, ttft_mean "
+        f"{sim['ttft_mean']:.3f} s (virtual clock, the router's model)")
+    gateway = {}
+    for name in ("rl", "mixing"):
+        trace = os.path.join(build, f"router_gateway_{name}_trace.json")
+        metrics = os.path.join(build, f"router_gateway_{name}_metrics.json")
+        argv = (["--mode", "gateway", "--backend", "py", "--policy", name,
+                 "--trace", trace, "--metrics-out", metrics] + ROUTER_ARGS
+                + (["--checkpoint", ckpt_dir] if name == "rl" else []))
+        t0 = time.perf_counter()
+        stats = m.serve_mod.serve_gateway(
+            m.serve_mod.build_parser().parse_args(argv))
+        wall = time.perf_counter() - t0
+        with open(trace) as f:
+            doc = json.load(f)
+        errs = m.obs.validate_chrome_trace(doc)
+        assert not errs, errs[:5]
+        assert stats["n"] + stats["shed"] == 400, stats
+        snap = stats["snapshot"]
+        pct = {k: (snap[k]["p50"], snap[k]["p95"]) for k in ("e2e", "ttft")}
+        gateway[name] = dict(
+            served=stats["n"], admitted=stats["admitted"],
+            shed=stats["shed"], preemptions=stats["preemptions"],
+            wall_s=wall, virtual_percentiles=pct,
+            predictor=stats["predictor"],
+            trace_events=len(doc["traceEvents"]))
+        log(f"  [{name}] gateway over the py simulator: served "
+            f"{stats['n']}, admitted {stats['admitted']}, shed "
+            f"{stats['shed']}, preemptions {stats['preemptions']}; "
+            f"predictor hits/misses/forwards {stats['predictor']['hits']}/"
+            f"{stats['predictor']['misses']}/"
+            f"{stats['predictor']['forwards']}; {wall:.3f} s wall "
+            f"(predictor training included); {len(doc['traceEvents'])} "
+            "trace events, valid")
+        log(f"  [{name}] virtual clock (profile {prof.name}, the router's "
+            "model of the hardware, not the card): " + ", ".join(
+                f"{k} p50/p95 {a:.3f}/{b:.3f} s" for k, (a, b)
+                in pct.items()))
+    torch.cuda.synchronize()
+    launches = read_launches(m)
+    phase_s = time.perf_counter() - t_phase
+    assert not any(launches.values()), launches
+    log(f"  router phase {phase_s:.1f} s; launches {launches}")
+    return launches, dict(predictor=pred_res, router=router_res,
+                          checkpoint=dict(leaves=len(saved), bytes=nbytes,
+                                          save_ms=save_ms,
+                                          restore_ms=restore_ms),
+                          serve_sim=dict(wall_s=sim_wall, n=sim["n"],
+                                         e2e_mean=sim["e2e_mean"],
+                                         ttft_mean=sim["ttft_mean"]),
+                          profiles=profiles, gateway=gateway,
+                          phase_s=phase_s), ckpt_dir
+
+
 # -- phases 6 and 7: the gateway over full-width engines ---------------------
 
 GATEWAY_RATE = 1.0           # arrivals per second of the virtual clock
@@ -730,13 +1035,16 @@ def init_full_width(torch, m, cfg, name: str, what: str):
 
 
 def gateway_runs(torch, np, m, cfg, params, cache_len, policies, stream,
-                 expect, kernels=(None, None)):
+                 expect, ckpt_dir, kernels=(None, None)):
     """Each policy on fresh engines (2 x 8 slots, FCFS, the V100
     profile) over the same stream through the port's ``serve_gateway``,
     the launch counts set to 0 just before each run and read just after
     it, then checked by ``expect(launches, admissions, iterations)``.
-    One decode step and, where ``kernels[1]`` names a kernel, one
-    prefill of the stream's median prompt are profiled per policy."""
+    The ``rl`` policy's agent is the trained router restored from
+    ``ckpt_dir`` (the reference CLI's ``--backend engine --policy rl
+    --checkpoint`` path).  One decode step and, where ``kernels[1]``
+    names a kernel, one prefill of the stream's median prompt are
+    profiled per policy."""
     prof = m.profiles.V100_LLAMA2_7B
     args = m.serve_mod.build_parser().parse_args(
         ["--mode", "gateway", "--backend", "engine", "--instances", "2",
@@ -760,7 +1068,7 @@ def gateway_runs(torch, np, m, cfg, params, cache_len, policies, stream,
         insts = engines()
         recorded = []
         if name == "rl":
-            agent = m.rl.make_agent(rcfg, m=2, device="cuda")
+            agent = m.restore_rl_policy(rcfg, ckpt_dir, m=2).agent
             act = agent.act
 
             def recording_act(state, mask, epsilon=0.0, prior=None,
@@ -828,7 +1136,7 @@ def gateway_runs(torch, np, m, cfg, params, cache_len, policies, stream,
     return launches_by_policy, out
 
 
-def gateway_phase(torch, np, m):
+def gateway_phase(torch, np, m, ckpt_dir):
     """Phase 6: llama-2-7b with int8 KV caches (8 slots x 2048 tokens),
     24 requests (outputs 16-128) under rl and mixing."""
     cfg = dataclasses.replace(m.get_config("llama-2-7b"),
@@ -850,14 +1158,14 @@ def gateway_phase(torch, np, m):
     return gateway_runs(
         torch, np, m, cfg, params, 2048, ("rl", "mixing"),
         lambda: gateway_stream(np, m.Request, 24, 128, 6, 20_000), expect,
-        (("decode_attention_int8", "dec_split"),
+        ckpt_dir, (("decode_attention_int8", "dec_split"),
          ("flash_attention", "fa_fwd_tc")))
 
 
 FALCON_MAMBA_PARAMS = 7_272_665_088
 
 
-def mamba_gateway_phase(torch, np, m):
+def mamba_gateway_phase(torch, np, m, ckpt_dir):
     """Phase 7: falcon-mamba-7b (attention-free: conv/ssm states per
     slot, no KV cache), 16 requests (outputs 16-64) under rl."""
     cfg = m.get_config("falcon-mamba-7b")
@@ -881,7 +1189,7 @@ def mamba_gateway_phase(torch, np, m):
     return gateway_runs(
         torch, np, m, cfg, params, 2048, ("rl",),
         lambda: gateway_stream(np, m.Request, 16, 64, 7, 40_000), expect,
-        (None, ("mamba_scan", "scan_fwd")))
+        ckpt_dir, (None, ("mamba_scan", "scan_fwd")))
 
 
 def check_q_on_cpu(torch, np, m, agent, recorded):
@@ -932,6 +1240,8 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.core import dqn, profiles, rl_router as rl
+    from repro_torch.core import predictor as pred_lib
+    from repro_torch.core import workload as wl
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
@@ -940,10 +1250,15 @@ def main(argv=None) -> int:
     from repro_torch.models import model as model_lib
     from repro_torch.models import params as params_lib
     from repro_torch.models.attention import quantize_kv
+    from repro_torch.serving import obs
     from repro_torch.serving.engine import LLMInstance
-    from repro_torch.serving.policies import RLPolicy, make_gateway_policy
+    from repro_torch.serving.gateway import MicroBatchPredictor
+    from repro_torch.serving.policies import (RLPolicy, make_gateway_policy,
+                                              restore_rl_policy)
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import get_scheduler
+    from repro_torch.training.checkpoint import (CheckpointManager,
+                                                 _flatten as flatten_tree)
     assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                    or m == "repro" for m in sys.modules), "JAX imported"
 
@@ -988,22 +1303,32 @@ def main(argv=None) -> int:
         serve_mod=serve_mod, LLMInstance=LLMInstance,
         get_scheduler=get_scheduler, make_gateway_policy=make_gateway_policy,
         RLPolicy=RLPolicy, Request=Request, rl=rl, dqn=dqn, fa=fa, da=da,
-        ms=ms)
+        ms=ms, pred_lib=pred_lib, wl=wl, obs=obs,
+        MicroBatchPredictor=MicroBatchPredictor,
+        restore_rl_policy=restore_rl_policy,
+        CheckpointManager=CheckpointManager, flatten_tree=flatten_tree)
     log("[5/7] serve full-width qwen3-0.6b through serve_engine")
     launches, served = serve(torch, np, mods)
     torch.cuda.empty_cache()
 
+    log("[5b/7] the router's learning path: predictor and DQN router "
+        "trained on the card, checkpointed, serving the simulator")
+    router_launches, router, ckpt_dir = router_phase(torch, np, mods)
+
     log("[6/7] the gateway over full-width llama-2-7b (int8 KV cache) "
-        "through serve_gateway, policies rl and mixing")
-    gw_launches, gateway = gateway_phase(torch, np, mods)
+        "through serve_gateway, policies rl (restored) and mixing")
+    gw_launches, gateway = gateway_phase(torch, np, mods, ckpt_dir)
     torch.cuda.empty_cache()
 
     log("[7/7] the gateway over full-width falcon-mamba-7b through "
-        "serve_gateway, policy rl")
-    mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods)
+        "serve_gateway, policy rl (restored)")
+    mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods,
+                                                        ckpt_dir)
     # each path's own counts (reset before it, read after it): phase 5's
-    # serve_engine, phase 6's gateway under each policy, phase 7's
+    # serve_engine, phase 5b's router path, phase 6's gateway under each
+    # policy, phase 7's
     by_path = {"serve_engine": launches,
+               "router": router_launches,
                "gateway_rl": gw_launches["rl"],
                "gateway_mixing": gw_launches["mixing"],
                "gateway_mamba_rl": mamba_launches["rl"]}
@@ -1012,8 +1337,7 @@ def main(argv=None) -> int:
     kernels = []
     for name, source, rep in KERNELS:
         t = times[name]
-        per_path = {p: c[name] for p, c in by_path.items()
-                    if c.get(name)}
+        per_path = {p: c[name] for p, c in by_path.items()}
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": rep, "launches": sum(per_path.values()),
                "launches_by_path": per_path, "max_abs_err": errs[name],
@@ -1045,7 +1369,8 @@ def main(argv=None) -> int:
                                "kernels": kernels,
                                "timing_shapes": {n: t["shape"]
                                                  for n, t in times.items()},
-                               "serve": served, "gateway": gateway,
+                               "serve": served, "router": router,
+                               "gateway": gateway,
                                "gateway_mamba": mamba_gateway})
     log(gpu)
     log(json.dumps({"kernels": kernels}))

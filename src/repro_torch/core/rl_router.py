@@ -17,68 +17,110 @@ that would *reward* bad placements, contradicting §5.3's own description
 workload mixing impact" -- i.e. zero is the best case).  We implement the
 evidently intended penalty  + w_k * h.
 
-This is the serving half of the port's router: the configuration, the
-r_mixing scoring and guidance prior every gateway policy reads, and the
-agent factory.  The training half (``BacklogTracker``, ``RoutingEnv``,
-``NStepAssembler``, ``train``, ``evaluate``) comes with the training
-slice of the port.
+This is the port of the router: the configuration, the r_mixing
+scoring and guidance prior every gateway policy reads, the agent
+factory, and the training half (``BacklogTracker``, ``RoutingEnv``,
+``NStepAssembler``, ``train``, ``evaluate``) over the ``py`` simulator
+stepper.  The vectorized and device-resident simulators, and the
+multi-episode pools the batched trainer packs episodes into, come with
+a later slice of the port; asking ``RoutingEnv`` for them raises.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import copy
+from collections import deque
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.core import impact, prefix_cache, state as state_lib
 from repro_torch.core.dqn import DQNAgent, DQNConfig
-from repro_torch.serving.request import Request
+from repro_torch.core.profiles import HardwareProfile
+from repro_torch.core.simulator import Cluster
+from repro_torch.serving.request import Request, summarize
 
 
 @dataclass
 class RouterConfig:
-    """The reference's ``RouterConfig``, cut to the fields its serving
-    path reads (policies, featurizer, agent factory, guidance weight);
-    the defaults are the reference's.  The training fields (rewards,
-    exploration, n-step targets, optimizer) come with the training
-    slice of the port."""
     variant: str = "guided"          # baseline | aware | guided
     n_instances: int = 4
+    dt: float = 0.02
     gamma: float = 0.997             # ~7 s credit horizon at dt=0.02
+    r_w: float = 60.0                # completion reward (§A.9.3)
     alpha: float = 0.5               # Eq.(1)/(2) balance (§6 Setup)
     beta_d: float = 0.5              # guidance decay (§6 Setup)
+    scheduler: str = "fcfs"
+    chunked_prefill: int = 0
     n_buckets: int = 8
+    actions_per_tick: int = 1
+    learn_every: int = 4
+    eps_start: float = 1.0
+    eps_end: float = 0.05
+    explore_episodes: int = 20       # §A.9.2: no exploration after ep 20
+    n_slots: Optional[int] = None
+    max_time: float = 36_000.0
     hidden: tuple = (64, 64)
+    lr: float = 3e-4
     include_impact_features: bool = True
     # per-instance hardware block (grad1/grad2/kv-capacity) in the
-    # state: lets one agent trained across calibrated + synthetic
-    # profiles condition on the hardware itself.  Off by default:
-    # existing checkpoints keep their state shape.
+    # state: lets one agent trained across calibrated +
+    # synthetic profiles condition on the hardware itself instead of
+    # inferring speed from load dynamics.  Off by default: existing
+    # checkpoints keep their state shape.
     include_hardware_features: bool = False
-    # prefix-cache model (core.prefix_cache): with
+    # prefix-cache model (core.prefix_cache): per-instance KV budget
+    # for cached prompt prefixes (0 disables the cache model).  With
     # ``include_cache_features`` the head request's prospective
     # per-instance hit fraction joins the state (CACHE_DIMS extra dims
-    # per instance); ``cache_weight`` adds the same affinity signal
-    # directly to mixing_scores so the guided variant's heuristic prior
-    # is cache-aware too.
+    # per instance -- existing checkpoints keep their shape while it is
+    # off); ``cache_weight`` adds the same affinity signal directly to
+    # mixing_scores so the guided variant's heuristic prior is
+    # cache-aware too.
     include_cache_features: bool = False
+    prefix_cache_tokens: int = 0
+    prefix_block: int = 32
     cache_weight: float = 0.0
     # gateway health block (serving.chaos.HealthTracker): per-instance
     # degradation score + straggler slowdown join the state so the agent
     # can route around degraded nodes before the breaker trips.  Off by
     # default: existing checkpoints keep their state shape.
     include_health_features: bool = False
+    reward_scale: float = 300.0
     q_squash: float = 0.05       # bound on Q's selection influence (guided)
     q_arch: str = "mlp"              # "mlp" (paper) | "decomposed" (ours)
+    # SLA safety valve: if the head request has waited this long at the
+    # router, a defer action is overridden with the best-impact placement
+    # (a production watchdog; also bounds episode length against
+    # defer-forever policies).  Each rescue costs sla_penalty so the agent
+    # cannot lean on the watchdog.
+    defer_timeout: float = 5.0
+    sla_penalty: float = 10.0
+    # NOTE: potential-based shaping was tried and REFUTED here: with every
+    # episode completing all requests, the telescoped backlog sum is
+    # policy-independent and the learning signal vanished.  The raw
+    # Eq.(3) backlog integral is the latency signal; reward centering
+    # handles its magnitude.
+    potential_shaping: bool = False
+    r_w_shaped: float = 1.0          # completion bonus under shaping
     # decision-time guidance floor: actions are selected from
-    # Q(s,a) + floor * r_mixing-advantage(a).  With a pure annealed DQN
-    # the argmax is dominated by Q noise and collapses to
-    # defer-everything / one-instance policies; a strong persistent
-    # prior keeps the workload heuristic in charge where Q differences
-    # are small and lets the learned values override it where they are
-    # confident -- worst case is impact-greedy parity.
+    # Q(s,a) + floor * r_mixing-advantage(a).  The paper anneals guidance
+    # to exactly zero; with a pure annealed DQN the argmax is dominated
+    # by Q noise and collapses to defer-everything / one-instance
+    # policies.
+    # A strong persistent prior keeps the workload heuristic in charge
+    # where Q differences are small and lets the learned values override
+    # it where they are confident -- worst case is impact-greedy parity.
     guidance_floor: float = 1.0
     defer_prior_bias: float = -0.05  # slight routing preference in the prior
+    # n-step truncated-return targets (no bootstrapping): Q regresses the
+    # discounted return over the next `nstep` decisions.  Bootstrapped
+    # 1-step DQN (nstep=0, the paper's setup) proved unstable on this MDP
+    # (tiny action advantages under a huge action-independent backlog
+    # term); truncated Monte-Carlo targets are plain supervised regression
+    # and capture placement effects, which materialize within seconds.
+    nstep: int = 80
+    nstep_gamma: float = 0.97
     seed: int = 0
 
 
@@ -143,11 +185,253 @@ def guidance_from_scores(cluster, req: Request, d_hat: int,
     return out
 
 
+class BacklogTracker:
+    """Incremental Eq.(3) backlog-penalty accumulators over one cluster.
+
+    The penalty is ``-sum_unfinished (1 - frac_r) / t_hat_r`` with
+    d-hat/t-hat fixed per request; instead of rescanning every arrived
+    request every 0.02 s tick (which dominated episode wall time), we
+    maintain S = sum 1/t_hat and T = sum frac/t_hat via arrival /
+    decode / preempt / finish events and read ``penalty() = T - S`` in
+    O(1).  The decode/preempt events come from SimInstance hooks
+    (installed here).  Shared by RoutingEnv and the online gateway
+    trainer so both compute identical reward streams over identical
+    event streams."""
+
+    def __init__(self, cluster, profile, predict_decode):
+        self.cluster = cluster
+        self.profile = profile
+        self.predict_decode = predict_decode
+        self.S = 0.0
+        self.T = 0.0
+        self.inv: Dict[int, tuple] = {}      # rid -> (1/d_hat, 1/t_hat)
+        for inst in cluster.instances:
+            inst.on_token = self.on_token
+            inst.on_preempt = self.on_preempt
+
+    def register(self, r) -> None:
+        """Account one request that entered the router queue."""
+        d_hat = max(self.predict_decode(r), 1)
+        inv_t = 1.0 / max(
+            self.profile.request_time(r.prompt_tokens, d_hat), 1e-3)
+        self.inv[r.rid] = (1.0 / d_hat, inv_t)
+        self.S += inv_t
+
+    def on_token(self, r):
+        iv = self.inv.get(r.rid)
+        if iv is None:
+            return
+        f0 = (r.decoded - 1) * iv[0]
+        if f0 >= 1.0:                 # progress already capped at 1
+            return
+        self.T += (min(r.decoded * iv[0], 1.0) - f0) * iv[1]
+
+    def on_preempt(self, r):
+        # called BEFORE reset_progress: r still holds its progress
+        iv = self.inv.get(r.rid)
+        if iv is not None and r.decoded:
+            self.T -= min(r.decoded * iv[0], 1.0) * iv[1]
+
+    def note_finished(self, done_now):
+        for r in done_now:
+            iv = self.inv.pop(r.rid, None)
+            if iv is not None:
+                self.S -= iv[1]
+                self.T -= min(r.decoded * iv[0], 1.0) * iv[1]
+
+    def penalty(self) -> float:
+        return self.T - self.S
+
+
+class RoutingEnv:
+    """One router action per dt tick (the paper's 0.02 s cadence).
+
+    ``profile`` may be one HardwareProfile (homogeneous, cfg.n_instances
+    wide -- the paper's setup) or a sequence of per-instance profiles
+    (heterogeneous cluster; its length overrides cfg.n_instances).
+
+    The episode steps on the ``py`` simulator.  The reference's other
+    backends (``backend="vec"``/``"jax"``, the deprecated
+    ``sim_backend=`` alias, and a shared multi-episode ``pool``) come
+    with a later slice of the port and raise ``NotImplementedError``."""
+
+    def __init__(self, cfg: RouterConfig, profile,
+                 predict_decode: Optional[Callable] = None,
+                 backend: Optional[str] = None,
+                 sim_backend: Optional[str] = None,
+                 pool=None, pool_ep: int = 0):
+        self.cfg = cfg
+        if isinstance(profile, HardwareProfile):
+            self.profiles = (profile,) * cfg.n_instances
+        else:
+            self.profiles = tuple(profile)
+        self.profile = self.profiles[0]     # router-level reference
+        self.m = len(self.profiles)
+        if sim_backend is not None or pool is not None or (
+                backend not in (None, "py")):
+            asked = ("a multi-episode pool" if pool is not None
+                     else f"backend {backend or sim_backend!r}")
+            raise NotImplementedError(
+                f"RoutingEnv over {asked} is not ported yet: the port "
+                "steps episodes on the 'py' simulator; the vectorized "
+                "and device-resident backends come with a later slice")
+        self.sim_backend = "py"
+        # d-hat: estimated decode tokens for a request (predictor hook;
+        # oracle fallback)
+        self.predict_decode = predict_decode or (
+            lambda r: r.decode_tokens)
+
+    def reset(self, requests: Sequence[Request]):
+        c = self.cfg
+        self.cluster = Cluster(
+            self.profiles, self.m, c.scheduler, c.dt,
+            c.chunked_prefill, c.n_slots,
+            prefix_cache_tokens=c.prefix_cache_tokens,
+            prefix_block=c.prefix_block)
+        self.pending = sorted(requests, key=lambda r: r.arrival)
+        self.n_total = len(self.pending)
+        # Incremental backlog penalty (Eq. 3 term 1): see BacklogTracker.
+        self._bk = BacklogTracker(self.cluster, self.profile,
+                                  self.predict_decode)
+        self._score_cache = None
+        self._i = 0
+        self._deliver()
+        return self._state()
+
+    def _deliver(self):
+        while (self._i < self.n_total
+               and self.pending[self._i].arrival <= self.cluster.t):
+            r = self.pending[self._i]
+            self.cluster.enqueue(r)
+            self._bk.register(r)
+            self._i += 1
+
+    def _note_finished(self, done_now):
+        self._bk.note_finished(done_now)
+
+    def _state(self) -> np.ndarray:
+        return state_lib.featurize(
+            self.cluster, self.profile, n_buckets=self.cfg.n_buckets,
+            include_impact=self.cfg.include_impact_features,
+            predict_decode=self.predict_decode, alpha=self.cfg.alpha,
+            include_hardware=self.cfg.include_hardware_features,
+            include_cache=self.cfg.include_cache_features,
+            include_health=self.cfg.include_health_features)
+
+    def mask(self) -> np.ndarray:
+        return state_lib.action_mask(self.cluster)
+
+    def _scores(self, req) -> np.ndarray:
+        """Per-instance r_mixing for routing ``req`` now (each instance
+        judged by its own profile; failed instances -inf).  Cached per
+        (request, tick): act-time guidance and the step() reward both need
+        the same scores and the cluster cannot change in between."""
+        cluster = self.cluster
+        key = (req.rid, cluster.t)
+        if self._score_cache is not None and self._score_cache[0] == key:
+            return self._score_cache[1]
+        d_hat = max(self.predict_decode(req), 1)
+        scores = mixing_scores(cluster, req, d_hat, self.cfg.alpha,
+                               cache_weight=self.cfg.cache_weight)
+        self._score_cache = (key, scores)
+        return scores
+
+    def guidance_bonus(self) -> np.ndarray:
+        """Per-action r_mixing advantage for the current head request
+        (route_i: scores_i - max; defer: min - max), zeros if no request."""
+        cluster = self.cluster
+        if not cluster.central:
+            return np.zeros(cluster.m + 1, np.float32)
+        req = cluster.central[0]
+        d_hat = max(self.predict_decode(req), 1)
+        return guidance_from_scores(cluster, req, d_hat,
+                                    self._scores(req),
+                                    self.cfg.defer_prior_bias)
+
+    def _backlog_penalty(self) -> float:
+        return self._bk.penalty()
+
+    def _apply_action(self, action: int, guide_w: float = 0.0) -> float:
+        """Apply one routing decision (SLA watchdog included); returns
+        the immediate mixing-term reward."""
+        c = self.cfg
+        cluster = self.cluster
+        mix_term = 0.0
+        scores = None
+        if cluster.central:
+            scores = self._scores(cluster.central[0])
+        if (action >= cluster.m and scores is not None
+                and cluster.t - cluster.central[0].arrival
+                > c.defer_timeout):
+            # SLA watchdog: force the best-impact placement, at a price
+            action = int(np.argmax(scores))
+            mix_term -= c.sla_penalty
+        if action < cluster.m and cluster.central:
+            if c.variant == "aware":
+                mix_term += float(scores[action])
+            elif c.variant == "guided":
+                mix_term += guide_w * float(scores[action] - scores.max())
+            cluster.route(action)
+        elif scores is not None and c.variant == "guided":
+            # deferring forfeits the currently-best placement; under the
+            # guiding heuristic ("route to argmax r_mixing now") that costs
+            # the quality spread it gives up.  (Strategic delay can still
+            # be learned once the guidance anneals away.)
+            finite = scores[np.isfinite(scores)]
+            if finite.size > 1:
+                mix_term += guide_w * float(finite.min() - finite.max())
+        return mix_term
+
+    def _after_tick(self, done_now) -> tuple:
+        """Per-tick bookkeeping after a cluster advance: -> (reward
+        delta, done flag)."""
+        c = self.cfg
+        self._note_finished(done_now)
+        self._deliver()
+        if not c.potential_shaping:
+            delta = (self._backlog_penalty() * c.dt
+                     + c.r_w * len(done_now))
+        else:
+            delta = c.r_w_shaped * len(done_now)
+        done = (len(self.cluster.completed) >= self.n_total
+                or self.cluster.t > c.max_time)
+        return delta, done
+
+    def step(self, action: int, guide_w: float = 0.0):
+        """One DECISION: apply the action, then advance dt ticks until the
+        next decision point (non-empty router queue) or episode end,
+        accumulating the Eq.(3) reward.  Ticks with an empty queue have no
+        choice to make (forced defer), so they are not decision states --
+        this keeps the replay buffer full of actual decisions while
+        preserving the paper's 0.02 s simulation cadence."""
+        c = self.cfg
+        cluster = self.cluster
+        reward = self._apply_action(action, guide_w)
+        completed = 0
+        phi_before = self._backlog_penalty()
+        while True:
+            done_now = cluster.advance()
+            delta, done = self._after_tick(done_now)
+            completed += len(done_now)
+            reward += delta
+            if done or cluster.central:
+                break
+        if c.potential_shaping:
+            # potential-based shaping on the backlog level: the raw Eq.(3)
+            # backlog integral has a huge action-independent component that
+            # drowns action advantages in the TD signal; telescoping the
+            # potential keeps the optimal policy (Ng et al. 1999) while the
+            # per-step reward tracks backlog CHANGES.
+            phi_after = self._backlog_penalty()
+            reward += (c.gamma * phi_after - phi_before)
+        return self._state(), reward, done, {"completed": completed}
+
+
 def make_agent(cfg: RouterConfig, m: Optional[int] = None,
                device="cuda") -> DQNAgent:
     """Build the DQN agent for an m-instance action space (defaults to
     cfg.n_instances; the batched runner passes its padded width m_max),
-    its Q-network on ``device``."""
+    its networks on ``device``."""
     m = m or cfg.n_instances
     inst_dims = state_lib.instance_dims(cfg.include_impact_features,
                                         cfg.include_hardware_features,
@@ -158,8 +442,10 @@ def make_agent(cfg: RouterConfig, m: Optional[int] = None,
                                       cfg.include_hardware_features,
                                       cfg.include_cache_features,
                                       cfg.include_health_features),
-        n_actions=m + 1, hidden=cfg.hidden, q_arch=cfg.q_arch,
-        inst_dims=inst_dims, router_dims=state_lib.ROUTER_DIMS)
+        n_actions=m + 1, hidden=cfg.hidden,
+        gamma=cfg.gamma, lr=cfg.lr, q_arch=cfg.q_arch,
+        inst_dims=inst_dims, router_dims=state_lib.ROUTER_DIMS,
+        center_rewards=not cfg.potential_shaping)
     return DQNAgent(dcfg, seed=cfg.seed, device=device)
 
 
@@ -167,3 +453,140 @@ def guidance_weight(cfg: RouterConfig, episode: int) -> float:
     if cfg.variant != "guided":
         return 0.0
     return cfg.gamma * float(np.exp(-cfg.beta_d * episode))
+
+
+class NStepAssembler:
+    """Truncated n-step Monte-Carlo return assembly (RouterConfig.nstep):
+    every decision's span reward is appended to all open windows, and a
+    window that has collected ``nstep`` rewards matures into a training
+    tuple (s0, a0, discounted return).  Shared by the offline ``train``
+    loop and the online gateway trainer so both emit identical targets
+    for identical decision/reward streams."""
+
+    def __init__(self, nstep: int, gamma: float):
+        self.nstep = nstep
+        self.g = gamma
+        self.window: deque = deque()
+
+    def add(self, s, a: int, r: float):
+        """Record one decision + its span reward; returns the (0 or 1)
+        matured (s0, a0, ret) tuples this decision flushed."""
+        for _, _, rs in self.window:
+            rs.append(r)
+        self.window.append((s, a, [r]))
+        if len(self.window) > self.nstep:
+            return (self._pop(),)
+        return ()
+
+    def _pop(self):
+        s0, a0, rs = self.window.popleft()
+        ret = 0.0
+        for i, ri in enumerate(rs):
+            ret += (self.g ** i) * ri
+        return s0, a0, ret
+
+    def drain(self):
+        """Flush every open window (episode / stream end)."""
+        while self.window:
+            yield self._pop()
+
+
+def train(cfg: RouterConfig, profile: HardwareProfile,
+          workload_fn: Callable[[int], Sequence[Request]],
+          n_episodes: int, agent: Optional[DQNAgent] = None,
+          predict_decode: Optional[Callable] = None,
+          valid_fn: Optional[Callable[[], Sequence[Request]]] = None,
+          verbose: bool = False, device="cuda") -> Dict:
+    """Train the RL router; returns {agent, history}.  Without an
+    ``agent`` a fresh one is built on ``device``.
+
+    valid_fn: workload for periodic GREEDY validation; the best-validating
+    snapshot is restored at the end (protects against the well-known
+    late-training DQN collapse when epsilon hits zero)."""
+    agent = agent or make_agent(cfg, device=device)
+    env = RoutingEnv(cfg, profile, predict_decode)
+    history = []
+    best = None
+    for ep in range(n_episodes):
+        requests = workload_fn(ep)
+        s = env.reset(requests)
+        w_k = guidance_weight(cfg, ep)
+        # training discount: gamma_k = gamma - w_k (guided); else gamma
+        gamma_k = cfg.gamma - w_k if cfg.variant == "guided" else cfg.gamma
+        frac = min(ep / max(cfg.explore_episodes, 1), 1.0)
+        eps = cfg.eps_start + (cfg.eps_end - cfg.eps_start) * frac
+        if ep >= cfg.explore_episodes:
+            eps = 0.0               # §A.9.2: exploit after episode 20
+        # per-episode discount (heuristic-guided horizon shortening).
+        # With n-step Monte-Carlo targets (nstep>0, observe() passes
+        # done=1) gamma never enters the TD target, so it is only
+        # applied in bootstrapped (nstep=0) mode, as in the reference.
+        if cfg.nstep == 0 and agent.cfg.gamma != gamma_k:
+            agent.cfg = replace(agent.cfg, gamma=round(gamma_k, 3))
+        w_sel = max(w_k, cfg.guidance_floor) \
+            if cfg.variant == "guided" else 0.0
+        scale = 1.0 if cfg.potential_shaping else cfg.reward_scale
+        ep_reward, ticks, done = 0.0, 0, False
+        asm = NStepAssembler(cfg.nstep, cfg.nstep_gamma)
+        while not done:
+            mask = env.mask()
+            prior = w_sel * env.guidance_bonus() if w_sel else None
+            a = agent.act(s, mask, epsilon=eps, prior=prior,
+                          q_squash=cfg.q_squash if w_sel else 0.0)
+            s2, r, done, _ = env.step(a, guide_w=w_k)
+            if cfg.nstep > 0:
+                # NOTE: matured windows bootstrap on the PRE-step state +
+                # post-step mask; both are dead values under done=1.0 MC
+                # targets (kept for byte-stable replay rows).
+                for s0, a0, ret in asm.add(s, a, r / scale):
+                    agent.observe(s0, a0, ret, s, 1.0, env.mask())
+            else:
+                agent.observe(s, a, r / scale, s2, float(done), env.mask())
+            if ticks % cfg.learn_every == 0:
+                agent.learn()
+            s = s2
+            ep_reward += r
+            ticks += 1
+        for s0, a0, ret in asm.drain():
+            agent.observe(s0, a0, ret, s, 1.0, env.mask())
+        stats = summarize(requests)
+        stats.update({"episode": ep, "reward": ep_reward, "ticks": ticks,
+                      "epsilon": eps, "guide_w": w_k})
+        # greedy-validation snapshot selection
+        if valid_fn is not None and eps <= 0.6:
+            v = evaluate(cfg, profile, agent, valid_fn(),
+                         predict_decode)
+            stats["valid_e2e"] = v["e2e_mean"]
+            if best is None or v["e2e_mean"] < best[0]:
+                # a clone: the live network keeps learning in place
+                best = (v["e2e_mean"], copy.deepcopy(agent.params))
+        history.append(stats)
+        if verbose:
+            print(f"ep {ep:3d} eps={eps:.2f} w_k={w_k:.3f} "
+                  f"reward={ep_reward:10.1f} e2e={stats['e2e_mean']:.2f}"
+                  + (f" valid={stats['valid_e2e']:.2f}"
+                     if "valid_e2e" in stats else ""))
+    if best is not None:
+        agent.params = best[1]
+        agent.target = copy.deepcopy(best[1])
+    return {"agent": agent, "history": history}
+
+
+def evaluate(cfg: RouterConfig, profile: HardwareProfile, agent: DQNAgent,
+             requests: Sequence[Request],
+             predict_decode: Optional[Callable] = None) -> Dict:
+    env = RoutingEnv(cfg, profile, predict_decode)
+    s = env.reset(requests)
+    done = False
+    w_sel = cfg.guidance_floor if cfg.variant == "guided" else 0.0
+    while not done:
+        prior = w_sel * env.guidance_bonus() if w_sel else None
+        a = agent.act(s, env.mask(), epsilon=0.0, prior=prior,
+                      q_squash=cfg.q_squash if w_sel else 0.0)
+        s, _, done, _ = env.step(a)
+    stats = summarize(requests)
+    stats["spikes"] = sum(len(i.spikes) for i in env.cluster.instances)
+    stats["router_wait_mean"] = float(np.mean(
+        [r.routed_at - r.arrival for r in requests
+         if r.routed_at is not None])) if requests else 0.0
+    return stats

@@ -1,30 +1,46 @@
-"""Serving launcher of the PyTorch port: real LLM engines behind the
-paper's router (twin of ``repro.launch.serve``'s ``--mode engine`` and
-``--mode gateway --backend engine`` paths).
+"""Serving launcher of the PyTorch port: the paper's router over the
+calibrated simulator or real LLM engines (twin of
+``repro.launch.serve``).  Everything runs on the card unless
+``--device cpu`` is given.
 
-  # reduced engines on the card (the default device), impact heuristic
-  PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
-      --requests 12
+  # closed-loop simulator episode: train the router, then serve
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sim \
+      --requests 400
 
-  # the online gateway over reduced real engines, any gateway policy
-  # (rr|jsq|mixing|mixing+cache|sticky|rl), with chaos and failover
+  # online gateway over the simulator: open-loop multi-tenant stream,
+  # pluggable policy, the learned length predictor in the loop, rolling
+  # SLO metrics; --policy rl trains the router first, or restores it
+  # with --checkpoint DIR
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
+      --policy rl|mixing|jsq|rr --pattern bursty --queue-cap 64
+
+  # same, with lifecycle tracing + metrics export (serving.obs):
+  # trace.json opens in Perfetto, metrics.json/.prom is the scrape
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
+      --trace trace.json --metrics-out metrics.json
+
+  # the gateway over reduced real engines, any gateway policy
+  # (rr|jsq|mixing|mixing+cache|sticky|rl --checkpoint DIR), with chaos
+  # and failover
   PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
       --backend engine --policy mixing --requests 12 \
       --chaos-seed 7 --failover
 
-  # the same on the CPU (attention through the kernels' plain versions)
-  PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
-      --backend engine --requests 12 --device cpu
+  # reduced engines, impact-heuristic routing
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+      --requests 12
 
-The simulator mode, the gateway over the simulators, online learning,
-calibration and the trace/metrics export come with later slices of the
-port; asking for them exits with a message saying so.
+Online learning (``--online``), calibration (``--calibrate``) and the
+vectorized and device-resident simulators (``--backend vec|jax``) come
+with later slices of the port; asking for them exits with a message
+saying so.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -33,15 +49,20 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import impact, rl_router as rl
+from repro_torch.core import workload as wl
+from repro_torch.core.cluster_manager import (ManagedCluster,
+                                              ManagedClusterConfig)
+from repro_torch.core.predictor import quick_bucket_predictor
 from repro_torch.core.profiles import V100_LLAMA2_7B, load_profile
 from repro_torch.models import params as params_lib
+from repro_torch.serving import obs
 from repro_torch.serving import trace as trace_lib
-from repro_torch.serving.chaos import FaultSchedule
+from repro_torch.serving.chaos import FaultSchedule, inject_bursts
 from repro_torch.serving.engine import LLMInstance
 from repro_torch.serving.gateway import (EngineClusterAdapter, Gateway,
-                                         GatewayConfig)
+                                         GatewayConfig, MicroBatchPredictor)
 from repro_torch.serving.metrics import format_snapshot
-from repro_torch.serving.policies import (make_gateway_policy,
+from repro_torch.serving.policies import (RLPolicy, make_gateway_policy,
                                           restore_rl_policy)
 from repro_torch.serving.request import Request, summarize
 from repro_torch.serving.scheduler import get_scheduler
@@ -113,13 +134,54 @@ def serve_engine(args, insts: Optional[List[LLMInstance]] = None,
 
 
 def _router_cfg(args) -> rl.RouterConfig:
-    """The reference launcher's router configuration, serving fields."""
+    # the online learner gets the health features: under chaos they
+    # carry the straggler/degradation signal it adapts to
     return rl.RouterConfig(variant="guided", n_instances=args.instances,
                            q_arch="decomposed", seed=0,
+                           explore_episodes=max(args.train_episodes - 3,
+                                                1),
+                           scheduler=args.scheduler,
+                           chunked_prefill=args.chunked_prefill,
+                           prefix_cache_tokens=args.prefix_cache,
+                           prefix_block=args.prefix_block,
                            cache_weight=(0.5 if args.prefix_cache
                                          else 0.0),
                            include_cache_features=bool(
-                               args.prefix_cache))
+                               args.prefix_cache),
+                           include_health_features=args.online)
+
+
+def _train_quick_agent(args, cfg: rl.RouterConfig, profile=None,
+                       agent=None) -> dict:
+    """Train the router on ``--train-episodes`` simulator episodes of
+    ``--requests`` at ``--rate`` (a fresh agent on ``--device`` unless
+    one is given); returns ``rl.train``'s ``{"agent", "history"}``."""
+    return rl.train(cfg, profile or V100_LLAMA2_7B,
+                    lambda ep: wl.to_requests(
+                        wl.generate(args.requests, seed=ep), rate=args.rate,
+                        seed=ep + 50),
+                    n_episodes=args.train_episodes, agent=agent,
+                    device=args.device)
+
+
+def serve_sim(args, agent=None) -> dict:
+    """--mode sim: the closed-loop path (``ManagedCluster.serve``) over
+    the simulator, routed by ``agent`` (trained here unless given);
+    prints and returns the episode's stats."""
+    resolve_device(args.device)
+    cfg = _router_cfg(args)
+    base = _base_profile(args)
+    if agent is None:
+        agent = _train_quick_agent(args, cfg, base)["agent"]
+    mgr = ManagedCluster(ManagedClusterConfig(n_instances=args.instances),
+                         cfg, base, agent)
+    reqs = wl.to_requests(wl.generate(args.requests, seed=991),
+                          rate=args.rate, seed=992)
+    stats = mgr.serve(reqs)
+    print(f"served n={stats['n']} e2e={stats['e2e_mean']:.2f}s "
+          f"ttft={stats['ttft_mean']:.2f}s "
+          f"preemptions={stats['preemptions']}")
+    return stats
 
 
 def _chaos_schedule(args) -> Optional[FaultSchedule]:
@@ -145,26 +207,56 @@ def gateway_requests(n: int) -> List[Request]:
             for i in range(n)]
 
 
+def _resolve_backend(args) -> str:
+    """Map the CLI flags onto one backend name.  ``--backend`` names it
+    directly ('sim' is the legacy alias for the ``py`` stepper);
+    ``--sim-backend`` is the deprecated spelling and wins when set."""
+    backend = "py" if args.backend == "sim" else args.backend
+    if args.sim_backend is not None:
+        warnings.warn(
+            "--sim-backend is deprecated; use --backend py|vec|jax",
+            DeprecationWarning, stacklevel=2)
+        if args.backend in ("sim", args.sim_backend):
+            backend = args.sim_backend
+    return backend
+
+
+#: flags only the simulator-backed gateway reads (dest names)
+SIM_ONLY = ("pattern", "sessions", "drift", "train_episodes",
+            "sim_backend")
+
+
 def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
                   policy=None, reqs: Optional[List[Request]] = None
                   ) -> dict:
-    """The online gateway over real engines (``--backend engine``):
-    admission, shedding/deferral, the routing policy, chaos and failover
-    in front of ``LLMInstance`` replicas.  Callers may hand in their own
-    engines, policy and request stream; by default the reduced ``--arch``
-    engines serve the reference's stream under ``--policy``.  Prints the
-    reference's summary lines and returns the gateway's stats."""
-    if args.backend != "engine":
-        sys.exit(f"--mode gateway --backend {args.backend}: the gateway "
-                 f"over the simulators {LATER}; this port serves "
-                 "--backend engine")
+    """The online gateway over the ``py`` simulator (the learned length
+    predictor in the loop) or over real engines (``--backend engine``):
+    admission, shedding/deferral, the routing policy, chaos and failover.
+    Over engines, callers may hand in their own engines, policy and
+    request stream; by default the reduced ``--arch`` engines serve the
+    reference's stream under ``--policy``.  Prints the reference's
+    summary lines, writes ``--trace`` / ``--metrics-out``, and returns
+    the gateway's stats (with the predictor's counters under
+    ``"predictor"`` over the simulator)."""
+    backend = _resolve_backend(args)
+    if backend in ("vec", "jax"):
+        sys.exit(f"--backend {backend}: the vectorized and "
+                 f"device-resident simulators {LATER}; the port serves "
+                 "--backend py and --backend engine")
     if args.online:
-        raise SystemExit("--online needs a simulator backend "
-                         "(py/vec): the engine adapter fires no "
-                         "decode events for the backlog reward)")
-    if args.metrics_out:
-        sys.exit(f"--metrics-out: the metrics export (serving/obs.py) "
-                 f"{LATER}")
+        if backend == "engine":
+            raise SystemExit("--online needs a simulator backend "
+                             "(py/vec): the engine adapter fires no "
+                             "decode events for the backlog reward)")
+        sys.exit(f"--online: continual learning in the gateway {LATER}")
+    if backend == "engine":
+        defaults = build_parser()
+        given = ["--" + d.replace("_", "-") for d in SIM_ONLY
+                 if getattr(args, d) != defaults.get_default(d)]
+        if given:
+            sys.exit(f"{', '.join(given)}: read only over the simulator "
+                     "(--backend py), not over --backend engine")
+    dev = resolve_device(args.device)
     cfg = _router_cfg(args)
     chaos = _chaos_schedule(args)
     gcfg = GatewayConfig(queue_cap=args.queue_cap, on_full=args.on_full,
@@ -174,32 +266,78 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
                          default_deadline_s=args.deadline,
                          prefix_cache_tokens=args.prefix_cache,
                          prefix_block=args.prefix_block,
+                         attribution=bool(args.metrics_out),
                          chaos=chaos, failover=args.failover,
                          max_retries=args.max_retries,
                          hedge_after_s=args.hedge_after)
     recorder = (trace_lib.TraceRecorder(sample=args.trace_sample)
                 if args.trace else None)
-    if engines is None:
-        engines = _tiny_engines(args)
-    if policy is None:
-        policy_name = args.policy
-        if policy_name == "rl":
+    length = None
+    if backend == "engine":
+        if engines is None:
+            engines = _tiny_engines(args)
+        if policy is None:
+            policy_name = args.policy
+            if policy_name == "rl":
+                if args.checkpoint:
+                    policy = restore_rl_policy(cfg, args.checkpoint,
+                                               m=args.instances, device=dev)
+                else:
+                    print("WARNING: --backend engine --policy rl needs "
+                          "--checkpoint (no simulator to train on); "
+                          "falling back to the mixing policy")
+                    policy_name = "mixing"
+                    policy = make_gateway_policy(policy_name, cfg)
+            else:
+                policy = make_gateway_policy(policy_name, cfg)
+        gw = Gateway(gcfg, None, policy,
+                     cluster=EngineClusterAdapter(engines), trace=recorder)
+        if reqs is None:
+            reqs = gateway_requests(args.requests)
+        stats = gw.run(reqs)
+    else:
+        base = _base_profile(args)
+        profiles = (base,) * args.instances
+        sessions = (wl.SessionConfig(block=args.prefix_block)
+                    if args.sessions else None)
+        if args.drift:
+            scn = wl.make_drift_scenario(seed=7,
+                                         n_requests=args.requests,
+                                         rate=args.rate,
+                                         pattern=args.pattern,
+                                         profiles=profiles)
+            if chaos is None and scn.meta["chaos"] is not None:
+                chaos = scn.meta["chaos"]
+                gcfg = dataclasses.replace(gcfg, chaos=chaos,
+                                           failover=True)
+        else:
+            scn = wl.make_tenant_scenario(seed=7,
+                                          n_requests=args.requests,
+                                          rate=args.rate,
+                                          pattern=args.pattern,
+                                          profiles=profiles,
+                                          sessions=sessions)
+        length = MicroBatchPredictor(quick_bucket_predictor(
+            base, n_train=2000, epochs=2, device=dev))
+        if args.policy == "rl":
             if args.checkpoint:
                 policy = restore_rl_policy(cfg, args.checkpoint,
-                                           m=args.instances)
+                                           m=args.instances, device=dev)
             else:
-                print("WARNING: --backend engine --policy rl needs "
-                      "--checkpoint (no simulator to train on); "
-                      "falling back to the mixing policy")
-                policy_name = "mixing"
-                policy = make_gateway_policy(policy_name, cfg)
+                policy = RLPolicy(
+                    _train_quick_agent(args, cfg, base)["agent"], cfg)
         else:
-            policy = make_gateway_policy(policy_name, cfg)
-    gw = Gateway(gcfg, None, policy, cluster=EngineClusterAdapter(engines),
-                 trace=recorder)
-    if reqs is None:
-        reqs = gateway_requests(args.requests)
-    stats = gw.run(reqs)
+            policy = make_gateway_policy(args.policy, cfg)
+        gw = Gateway(gcfg, profiles, policy, length=length,
+                     trace=recorder)
+        if chaos is not None and chaos.bursts:
+            reqs = inject_bursts(scn.requests, chaos,
+                                 seed=args.chaos_seed)
+            samples = list(scn.samples) + [None] * (
+                len(reqs) - len(scn.requests))
+            stats = gw.run(reqs, samples=samples)
+        else:
+            stats = gw.run(scn)
     print(f"policy={stats['policy']} served n={stats['n']} "
           f"admitted={stats['admitted']} shed={stats['shed']} "
           f"preemptions={stats['preemptions']}")
@@ -207,49 +345,86 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
         print(f"chaos: orphaned={stats['orphaned']} "
               f"retried={stats['retried']} hedged={stats['hedged']} "
               f"breaker_trips={stats.get('breaker_trips', 0)}")
+    if length is not None:
+        stats["predictor"] = {"hits": length.hits, "misses": length.misses,
+                              "forwards": length.forwards}
+        print(f"predictor: hits={length.hits} misses={length.misses} "
+              f"forwards={length.forwards}")
     print(format_snapshot(stats["snapshot"]))
-    if recorder is not None:
-        print(f"recorded {len(recorder.events())} trace events "
-              f"({recorder.dropped} dropped); writing {args.trace} "
-              f"(serving/obs.py) {LATER}")
+    if args.trace:
+        doc = obs.write_trace(recorder, args.trace,
+                              title=f"gateway-{stats['policy']}")
+        print(f"wrote {args.trace} ({len(doc['traceEvents'])} trace "
+              f"events, {recorder.dropped} dropped)")
+    if args.metrics_out:
+        reg = obs.MetricsRegistry()
+        reg.ingest_snapshot(stats["snapshot"])
+        telemetry = getattr(getattr(gw.policy, "agent", None),
+                            "telemetry", None)
+        if telemetry is not None:
+            reg.ingest_rl(telemetry())
+        reg.save(args.metrics_out)
+        print(f"wrote {args.metrics_out} ({len(reg)} metrics)")
     return stats
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference's flags that the engine paths read, plus
-    ``--device``.  The simulator-only flags (``--sessions``,
-    ``--drift``, ``--pattern``, the online and calibration settings)
-    come with the slices that port those modes, so argparse rejects
-    them here."""
+    """The reference's flags that the ported modes read, plus
+    ``--device``.  The flags only online learning or calibration read
+    (``--guardrail``, ``--online-eps``, ``--save-learner``,
+    ``--min-r2``) come with the slices that port those modes, so
+    argparse rejects them here."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("sim", "engine", "gateway"),
-                    default="engine")
+                    default="sim")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the engines and the RL "
-                    "router ('cuda' needs a card; 'cpu' runs the "
-                    "kernels' plain versions)")
+                    help="torch device of the router, the length "
+                    "predictor and the engines ('cuda' needs a card; "
+                    "'cpu' runs the kernels' plain versions)")
     ap.add_argument("--backend",
                     choices=("sim", "py", "vec", "jax", "engine"),
                     default="sim",
-                    help="gateway cluster backend; the port serves "
-                    "'engine' (real engines), the simulator backends "
-                    "come with a later slice")
+                    help="gateway cluster backend: 'py' (or its legacy "
+                    "alias 'sim') is the simulator stepper, 'engine' "
+                    "runs reduced real engines; 'vec' and 'jax' come "
+                    "with a later slice")
     ap.add_argument("--policy", default="mixing",
                     choices=("rl", "mixing", "mixing+cache", "jsq",
                              "rr", "sticky"),
                     help="gateway routing policy")
+    ap.add_argument("--pattern", default="bursty",
+                    choices=("poisson", "bursty", "diurnal"))
     ap.add_argument("--queue-cap", type=int, default=0,
                     help="admission queue bound (0 = unbounded)")
+    ap.add_argument("--sim-backend", choices=("py", "vec", "jax"),
+                    default=None,
+                    help="DEPRECATED alias: use --backend py|vec|jax")
     ap.add_argument("--deadline", type=float, default=None,
                     help="client timeout in seconds (deferred requests "
                     "past it are cancelled)")
     ap.add_argument("--on-full", default="shed",
                     choices=("shed", "defer"))
+    ap.add_argument("--prefix-cache", type=int, default=0,
+                    help="per-instance prefix/KV cache budget in "
+                    "tokens (0 = cache model off); enables the "
+                    "cache-affinity policies and RL state feature")
+    ap.add_argument("--prefix-block", type=int, default=32,
+                    help="prefix-cache hash-block size in tokens")
+    ap.add_argument("--sessions", action="store_true",
+                    help="gateway: multi-turn conversation workload "
+                    "(follow-up prompts extend prior turns; tenants "
+                    "share system prompts) instead of independent "
+                    "queries")
     ap.add_argument("--checkpoint", default=None,
                     help="router checkpoint dir for --policy rl")
     ap.add_argument("--online", action="store_true",
                     help="gateway: continual learning on the live "
-                    "stream (needs a simulator backend)")
+                    "stream (a later slice)")
+    ap.add_argument("--drift", action="store_true",
+                    help="gateway: serve the nonstationary drift "
+                    "scenario (mid-stream workload-mix flip + tenant "
+                    "churn + straggler/crash chaos) instead of the "
+                    "stationary tenant mix")
     ap.add_argument("--chaos-seed", type=int, default=None,
                     help="gateway: inject a seeded FaultSchedule "
                     "(serving.chaos) of crashes / stragglers / tenant "
@@ -272,31 +447,29 @@ def build_parser() -> argparse.ArgumentParser:
                     "request still tokenless after this long and "
                     "re-route it (None = off)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="gateway: record request lifecycle spans into "
-                    "a TraceRecorder (the export to PATH comes with a "
-                    "later slice)")
+                    help="gateway: record request lifecycle spans and "
+                    "write a Chrome trace-event JSON (load in Perfetto "
+                    "/ chrome://tracing)")
     ap.add_argument("--trace-sample", type=float, default=1.0,
                     help="head-sampling fraction of requests traced")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
-                    help="gateway: metrics registry export (a later "
-                    "slice)")
+                    help="gateway: write the metrics registry (SLO "
+                    "snapshot + decision attribution + RL telemetry) "
+                    "as JSON, or Prometheus text if PATH ends in "
+                    ".prom")
     ap.add_argument("--calibrate", action="store_true",
                     help="fit a HardwareProfile from the engine (a "
                     "later slice)")
     ap.add_argument("--profile-json", default=None,
                     help="serve with the profile loaded from this JSON "
                     "instead of the default V100 calibration")
-    ap.add_argument("--prefix-cache", type=int, default=0,
-                    help="per-instance prefix/KV cache budget in "
-                    "tokens (0 = cache model off)")
-    ap.add_argument("--prefix-block", type=int, default=32,
-                    help="prefix-cache hash-block size in tokens")
     ap.add_argument("--arch", default="llama-2-7b")
     ap.add_argument("--instances", type=int, default=4)
     ap.add_argument("--requests", type=int, default=400)
     ap.add_argument("--rate", type=float, default=20.0)
     ap.add_argument("--scheduler", default="fcfs")
     ap.add_argument("--chunked-prefill", type=int, default=0)
+    ap.add_argument("--train-episodes", type=int, default=8)
     return ap
 
 
@@ -305,9 +478,8 @@ def main(argv=None):
     if args.calibrate:
         sys.exit(f"--calibrate {LATER}")
     if args.mode == "sim":
-        sys.exit(f"--mode sim {LATER}; the port serves --mode engine and "
-                 "--mode gateway --backend engine")
-    if args.mode == "gateway":
+        serve_sim(args)
+    elif args.mode == "gateway":
         serve_gateway(args)
     else:
         serve_engine(args)

@@ -17,8 +17,11 @@ that loop as a first-class subsystem:
     jsq / mixing / rl are one-line swaps), plus the SLA watchdog from
     the RL env (a defer on a request that has waited past
     ``defer_timeout`` is overridden with the best-impact placement);
-  * a length service in the hot path that stamps d-hat onto each
-    arrival (``prefetch`` once per tick, ``estimate`` per decision);
+  * the learned length predictor in the hot path via
+    ``MicroBatchPredictor``: arrivals of each tick are predicted in ONE
+    padded forward (micro-batching), LRU-cached per prompt content, and
+    stamped onto the request as d-hat -- no oracle decode lengths
+    anywhere in the routing path;
   * ``serving.metrics.StreamMetrics``: windowed P50/P95/P99
     TTFT/TBT/E2E, per-tenant breakdowns, SLO attainment, shed counters.
 
@@ -30,11 +33,8 @@ this subsystem.
 The gateway fronts either the discrete-event simulator ``Cluster`` or
 real ``serving.engine.LLMInstance`` replicas (``EngineClusterAdapter``).
 
-This is the port's copy of ``repro.serving.gateway``.  The learned
-length predictor's micro-batching service (``MicroBatchPredictor``)
-comes with the port of ``core/predictor.py``; until then the length
-service is ``OracleLength`` or any object with the same two methods.
-The simulator-backed cluster runs the ``py`` stepper only.
+This is the port's copy of ``repro.serving.gateway``.  The
+simulator-backed cluster runs the ``py`` stepper only.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import predictor as pred_lib
 from repro_torch.core import rl_router as rl
 from repro_torch.core import workload as wl
 from repro_torch.core.simulator import Cluster
@@ -66,6 +67,80 @@ class OracleLength:
 
     def estimate(self, req: Request) -> int:
         return req.decode_tokens
+
+
+class MicroBatchPredictor:
+    """The learned bucket predictor in the serving hot path.
+
+    ``prefetch`` runs once per arrival window (tick): every new arrival
+    whose prompt content is not LRU-cached is encoded and predicted in
+    one forward padded to ``batch_pad`` rows -- so the predictor costs
+    one pass per window, not one per request, at one fixed shape.
+    Results are stamped on the request (``predicted_bucket`` /
+    ``predicted_decode``) and cached by prompt content, so repeated
+    prompts (retries, templated traffic) skip the network entirely."""
+    name = "microbatch"
+
+    def __init__(self, predictor: pred_lib.BucketPredictor,
+                 batch_pad: int = 16, cache_size: int = 4096,
+                 default_bucket: int = 3):
+        self.predictor = predictor
+        self.batch_pad = batch_pad
+        self.cache_size = cache_size
+        self._cache: OrderedDict = OrderedDict()   # key -> (bucket, d_hat)
+        self.hits = 0
+        self.misses = 0
+        self.forwards = 0            # encoder passes
+        self.default_d = max(
+            int(predictor.bucket_upper_tokens(default_bucket)), 1)
+
+    @staticmethod
+    def _key(sample) -> tuple:
+        return (sample.task_id, sample.token_ids.tobytes())
+
+    def _stamp(self, req: Request, bucket: int, d_hat: int):
+        req.predicted_bucket = bucket
+        req.predicted_decode = pred_lib.serviceable_decode(
+            self.predictor.profile, d_hat, req.prompt_tokens)
+
+    def prefetch(self, pairs: Sequence[Tuple[Request, object]]):
+        todo: List[Tuple[tuple, Request, object]] = []
+        for req, sample in pairs:
+            if sample is None:
+                continue
+            key = self._key(sample)
+            hit = self._cache.get(key)
+            if hit is not None:
+                self.hits += 1
+                self._cache.move_to_end(key)
+                self._stamp(req, *hit)
+            else:
+                self.misses += 1
+                todo.append((key, req, sample))
+        if not todo:
+            return
+        # one padded forward per batch_pad window (predict() owns the
+        # pad/chunk logic)
+        buckets = self.predictor.predict([s for _, _, s in todo],
+                                         chunk=self.batch_pad)
+        self.forwards += -(-len(todo) // self.batch_pad)
+        for (key, req, _), b in zip(todo, buckets):
+            d_hat = max(int(self.predictor.bucket_upper_tokens(int(b))),
+                        1)
+            self._cache[key] = (int(b), d_hat)
+            self._stamp(req, int(b), d_hat)
+            while len(self._cache) > self.cache_size:
+                self._cache.popitem(last=False)
+
+    def estimate(self, req: Request) -> int:
+        if req.predicted_decode is not None:
+            return req.predicted_decode
+        return self.default_d
+
+    def bucket_of(self, decode_tokens: int) -> int:
+        """Ground-truth bucket for a realized decode length (drift
+        bucket-accuracy join in StreamMetrics)."""
+        return self.predictor.bucket_of(decode_tokens)
 
 
 # -- real-engine backend ----------------------------------------------------

@@ -200,7 +200,7 @@ class RLPolicy:
         self.agent = agent
         self.cfg = router_cfg
 
-    def hot_swap(self, params):
+    def hot_swap(self, params, target=None):
         """Atomically publish refreshed Q weights onto the served agent.
 
         Each swap is a single attribute rebinding (one reference store,
@@ -208,9 +208,11 @@ class RLPolicy:
         longer mutates: a concurrent ``route`` reads
         ``self.agent.params`` exactly once per decision and sees either
         the old or the new network in full -- never a torn mix of
-        layers.  (The reference also swaps a target network; serving
-        has none.)"""
+        layers.  ``target``, when given, replaces the target network the
+        same way."""
         self.agent.params = params
+        if target is not None:
+            self.agent.target = target
 
     def route(self, cluster, req, d_hat: int) -> Optional[int]:
         cfg = self.cfg
@@ -295,15 +297,24 @@ class LegacyPolicyAdapter:
 
 
 def restore_rl_policy(router_cfg: rl.RouterConfig, checkpoint_dir: str,
-                      m: Optional[int] = None) -> RLPolicy:
-    """Rebuild an RL policy from a router checkpoint directory.  The
-    reference's checkpoints are msgpack artifacts; their reader
-    (``training/checkpoint.py``) comes with the training slice of the
-    port, so this raises until then."""
-    raise NotImplementedError(
-        f"cannot restore the router checkpoint {checkpoint_dir!r}: "
-        "reading router checkpoints comes with the training slice of "
-        "the port (training/checkpoint.py)")
+                      m: Optional[int] = None, device="cuda") -> RLPolicy:
+    """Rebuild the agent for an m-wide action space on ``device`` and
+    restore its weights from a ``training.checkpoint`` directory (the
+    artifact ``ManagedCluster.save_router`` / the trainers write, in the
+    reference's tree layout, so the reference's checkpoints restore
+    too)."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    agent = rl.make_agent(router_cfg, m=m, device=device)
+    mgr = CheckpointManager(checkpoint_dir)
+    try:
+        out = mgr.restore(agent.state_dict())
+    finally:
+        mgr.close()
+    if out is None:
+        raise FileNotFoundError(
+            f"no router checkpoint under {checkpoint_dir}")
+    agent.load_state_dict(out[0])
+    return RLPolicy(agent, router_cfg)
 
 
 def make_gateway_policy(name: str, router_cfg: Optional[rl.RouterConfig]

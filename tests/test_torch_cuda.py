@@ -360,3 +360,133 @@ def _numpy_tree(tree):
     if isinstance(tree, list):
         return [_numpy_tree(v) for v in tree]
     return tree.numpy()
+
+
+# -- the router's learning path on the card (no kernel of its own) ----------
+
+def _tree_close(got, want, tol, grad=None, lr=0.0):
+    """Two parameter trees within ``tol`` of the larger tree's scale.
+    With ``grad`` (|g| per leaf) and ``lr``: where a first Adam step saw
+    a rounding-level gradient (|g| < 1e-6) its step may be anything in
+    [-lr, lr] on either device, so there it is held to that bound."""
+    from repro_torch.training.checkpoint import _flatten
+    got, want = _flatten(got), _flatten(want)
+    assert list(got) == list(want)
+    scale = max(float(abs(v).max()) for v in want.values())
+    for key in want:
+        sure = (grad[key] >= 1e-6) if grad is not None else slice(None)
+        torch.testing.assert_close(torch.as_tensor(got[key][sure]),
+                                   torch.as_tensor(want[key][sure]),
+                                   rtol=tol, atol=tol * scale,
+                                   msg=lambda m, k=key: f"{k}: {m}")
+        if grad is not None:
+            assert float(abs(got[key] - want[key]).max()) <= 2 * lr + tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mlp", "decomposed"])
+def test_cuda_train_batch_matches_cpu(cuda_device, arch):
+    """One double-DQN step at the router's width (4 instances, batch
+    512) on the card against the CPU, 1e-5 of each tree's scale."""
+    from repro_torch.core import dqn, rl_router as rl
+    cfg = rl.RouterConfig(n_instances=4, q_arch=arch)
+    cpu = rl.make_agent(cfg, device="cpu")
+    card = rl.make_agent(cfg, device=cuda_device)
+    card.from_reference(cpu.params.reference_tree())
+    d, n_a = cpu.cfg.state_dim, cpu.cfg.n_actions
+    g = torch.Generator().manual_seed(0)
+    batch = torch.randn((512, 2 * d + 4 + n_a), generator=g)
+    batch[:, 2 * d] = torch.randint(0, n_a, (512,), generator=g)
+    batch[:, 2 * d + 2] = (torch.rand(512, generator=g) < 0.5).float()
+    batch[:, 2 * d + 3:2 * d + 3 + n_a] = (
+        torch.rand((512, n_a), generator=g) < 0.7).float()
+    batch[:, 2 * d + 2 + n_a] = 1.0
+    batch[:, -1] = torch.rand(512, generator=g) + 0.1
+    loss_c, td_c = dqn.train_batch(cpu.cfg, cpu.params, cpu.opt,
+                                   cpu.target, batch)
+    loss_g, td_g = dqn.train_batch(card.cfg, card.params, card.opt,
+                                   card.target, batch.to(cuda_device))
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    torch.testing.assert_close(td_g.cpu(), td_c, rtol=1e-5,
+                               atol=1e-5 * float(td_c.abs().max()))
+    sc, sg = cpu.state_dict(), card.state_dict()
+    from repro_torch.training.checkpoint import _flatten
+    grad = {k: abs(v) / 0.1 for k, v in _flatten(sc["opt"]["m"]).items()}
+    for key in ("m", "v"):
+        _tree_close(sg["opt"][key], sc["opt"][key], 1e-5)
+    _tree_close(sg["params"], sc["params"], 1e-5, grad, cpu.cfg.lr)
+    assert int(sg["opt"]["step"]) == 1 and \
+        sg["opt"]["step"].dtype == torch.int32
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_forward_and_train_step_match_cpu(cuda_device):
+    """The length predictor at the reference CLI's width (seq 64, d 64,
+    4 heads, 2 layers): logits of 512 prompts and one train step of 128
+    on the card against the CPU."""
+    import numpy as np
+
+    from repro_torch.core import predictor as pred_lib
+    from repro_torch.core import workload as wl
+    from repro_torch.core.profiles import V100_LLAMA2_7B
+    cfg = pred_lib.PredictorConfig()
+    cpu = pred_lib.BucketPredictor(cfg, V100_LLAMA2_7B, device="cpu")
+    card = pred_lib.BucketPredictor(cfg, V100_LLAMA2_7B,
+                                    device=cuda_device)
+    card.params.load_reference(cpu.params.reference_tree())
+    samples = wl.generate(512, seed=3)
+    lc, lg = cpu.logits(samples), card.logits(samples)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(lc).max()))
+    # cuBLAS picks its kernel by the row count, so the serving path's
+    # 16-row windows may round differently from 512-row chunks (the CPU
+    # forward is row-independent bit for bit, test_torch_predictor.py)
+    l16 = card.logits(samples, chunk=16)
+    np.testing.assert_allclose(l16, lg, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(lg).max()))
+    top2 = np.sort(lg, -1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2e-5 * float(np.abs(lg).max())
+    np.testing.assert_array_equal(l16.argmax(-1)[decided],
+                                  lg.argmax(-1)[decided])
+    tok = torch.from_numpy(np.stack([pred_lib.encode_sample(cfg, s)
+                                     for s in samples[:128]])).long()
+    lab = torch.tensor([cpu.label(s) for s in samples[:128]])
+    loss_c = pred_lib._train_step(cpu.params, cpu.opt, cfg, tok, lab)
+    loss_g = pred_lib._train_step(card.params, card.opt, cfg,
+                                  tok.to(cuda_device), lab.to(cuda_device))
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    grad = {k: abs(v.numpy()) / 0.1 for k, v in cpu.opt["m"].items()}
+    _tree_close({k: p.detach().cpu().numpy()
+                 for k, p in card.params.named_parameters()},
+                {k: p.detach().numpy()
+                 for k, p in cpu.params.named_parameters()},
+                1e-5, grad, cfg.lr)
+
+
+@pytest.mark.cuda
+def test_cuda_agent_checkpoint_round_trip(cuda_device, tmp_path):
+    """A card agent's state through the checkpoint file into a second
+    card agent and a CPU agent, every leaf bit-equal."""
+    import numpy as np
+
+    from repro_torch.core import rl_router as rl
+    from repro_torch.training.checkpoint import CheckpointManager, _flatten
+    cfg = rl.RouterConfig(n_instances=4, q_arch="decomposed")
+    card = rl.make_agent(cfg, device=cuda_device)
+    rng = np.random.default_rng(0)
+    d = card.cfg.state_dim
+    for _ in range(600):
+        card.observe(rng.standard_normal(d), int(rng.integers(0, 5)),
+                     float(rng.normal()), rng.standard_normal(d), 1.0,
+                     np.ones(5, bool))
+    assert card.learn() is not None
+    mgr = CheckpointManager(str(tmp_path))
+    try:
+        mgr.save(1, card.state_dict(), sync=True)
+        for dev in (cuda_device, "cpu"):
+            other = rl.make_agent(cfg, device=dev)
+            other.load_state_dict(mgr.restore(other.state_dict())[0])
+            for key, val in _flatten(other.state_dict()).items():
+                assert np.array_equal(val, _flatten(card.state_dict())[key])
+    finally:
+        mgr.close()

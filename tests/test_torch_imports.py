@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor the reference
-package, and its entry points refuse to run on the CPU unless asked."""
+package (nor ``msgpack``, ``zstandard`` or ``flax``, which the card's
+machine does not have), and its entry points refuse to run on the CPU
+unless asked."""
 import os
 import pathlib
 import re
@@ -29,7 +31,9 @@ def test_port_imports_no_jax_and_no_reference():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax")
-                     or m == "repro" or m.startswith("repro."))
+                     or m == "repro" or m.startswith("repro.")
+                     or m.split(".")[0] in ("msgpack", "zstandard",
+                                            "flax"))
         assert not bad, bad
         print(len({_port_modules()!r}))
     """)
@@ -47,6 +51,8 @@ def test_port_imports_no_jax_and_no_reference():
 def test_port_sources_never_name_jax_or_reference(path):
     text = path.read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
+    assert not re.search(r"^\s*(import|from)\s+(msgpack|zstandard|flax)\b",
+                         text, re.M)
     assert not re.search(r"^\s*(import\s+repro\b(?!_)|from\s+repro[\s.])",
                          text, re.M)
 
@@ -77,16 +83,18 @@ def test_entry_points_default_to_the_card():
         serve.main(["--mode", "gateway", "--backend", "engine",
                     "--requests", "1", "--instances", "1",
                     "--arch", "qwen3-0.6b"])
+    for argv in (["--mode", "sim"], ["--mode", "gateway"],
+                 ["--mode", "gateway", "--backend", "py", "--policy", "rl"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(argv + ["--requests", "4", "--train-episodes", "1"])
 
 
 def test_serve_cli_refuses_unported_modes():
     from repro_torch.launch import serve
-    for argv in (["--mode", "sim"],
-                 ["--mode", "gateway"],
-                 ["--mode", "gateway", "--backend", "py"],
-                 ["--mode", "gateway", "--backend", "vec"],
-                 ["--mode", "gateway", "--backend", "engine",
-                  "--metrics-out", "m.json"],
+    for argv in (["--mode", "gateway", "--backend", "vec"],
+                 ["--mode", "gateway", "--backend", "jax"],
+                 ["--mode", "gateway", "--sim-backend", "vec"],
+                 ["--mode", "gateway", "--online"],
                  ["--calibrate"]):
         with pytest.raises(SystemExit, match="later slice"):
             serve.main(argv + ["--device", "cpu"])
@@ -97,16 +105,25 @@ def test_serve_cli_refuses_unported_modes():
 
 @pytest.mark.parametrize("flag", [
     ["--pattern", "poisson"], ["--sim-backend", "py"], ["--sessions"],
-    ["--guardrail", "0.1"], ["--online-eps", "0.1"], ["--drift"],
-    ["--save-learner", "d"], ["--min-r2", "0.5"],
-    ["--train-episodes", "2"]])
-def test_serve_cli_rejects_simulator_only_flags(flag, capsys):
-    """Flags that only the simulator, online or calibration modes read
-    are not accepted over engines, so none is silently ignored."""
+    ["--drift"], ["--train-episodes", "2"]])
+def test_serve_cli_rejects_simulator_only_flags(flag):
+    """Flags that only the simulator-backed modes read are refused over
+    engines, so none is silently ignored."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match="only over the simulator"):
+        serve.main(["--mode", "gateway", "--backend", "engine",
+                    "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--guardrail", "0.1"], ["--online-eps", "0.1"],
+    ["--save-learner", "d"], ["--min-r2", "0.5"]])
+def test_serve_cli_rejects_online_and_calibration_flags(flag, capsys):
+    """Flags that only online learning or calibration read (later
+    slices) are not accepted at all."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as exc:
-        serve.build_parser().parse_args(
-            ["--mode", "gateway", "--backend", "engine"] + flag)
+        serve.build_parser().parse_args(["--mode", "gateway"] + flag)
     assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
 

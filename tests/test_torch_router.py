@@ -164,9 +164,26 @@ def test_agent_defaults_to_the_card():
         pt_rl.make_agent(cfg)
 
 
-def test_restore_rl_policy_names_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pt_pol.restore_rl_policy(pt_rl.RouterConfig(), "ckpt", m=2)
+def test_restore_rl_policy_names_the_training_slice(tmp_path):
+    """The training slice's checkpoint restores into a policy whose
+    networks equal the saved agent's; an empty directory raises."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    cfg = pt_rl.RouterConfig(q_arch="decomposed", n_instances=3)
+    saved = pt_rl.make_agent(dataclasses.replace(cfg, seed=5),
+                             device="cpu")
+    mgr = CheckpointManager(str(tmp_path))
+    try:
+        mgr.save(2, saved.state_dict(), sync=True)
+    finally:
+        mgr.close()
+    pol = pt_pol.restore_rl_policy(cfg, str(tmp_path), m=2, device="cpu")
+    s = np.ones((2, pol.agent.cfg.state_dim), np.float32)
+    q = pt_dqn.q_values(pol.agent.params, s)
+    np.testing.assert_array_equal(q, pt_dqn.q_values(saved.params, s))
+    assert not np.array_equal(q, pt_dqn.q_values(
+        pt_rl.make_agent(cfg, m=2, device="cpu").params, s))
+    with pytest.raises(FileNotFoundError, match="no router checkpoint"):
+        pt_pol.restore_rl_policy(cfg, str(tmp_path / "none"), device="cpu")
 
 
 def test_guidance_weight_and_dims_match_reference():
