@@ -62,6 +62,24 @@ Phases, in order; any failure raises and the process exits non-zero:
      400-request stream, each writing a Chrome trace (validated) and a
      metrics file under ``build/``; the kernels' launch counts read
      around the phase (none of them runs there);
+  5c. the router's scale-up on the card (no kernel of the port runs
+     there; each part's launch counts are read around it and must be 0):
+     (a) benchmarks/bench_batched_rl.py's schedule (V100 x 4, the
+     Table-1 mixture, 200 requests at 20/s, 16 episodes) trained three
+     ways -- sequential ``rl.train``, ``train_router`` with 8
+     environments over the ``py`` stepper and over the ``vec`` pool --
+     with decisions/s, learn steps, the vec-trained router's held-out
+     E2E beside round robin's and mixing's, and one ``act_batch`` of 8
+     rows and one learn step of 256 rows timed and profiled; (b) ``train_router``
+     over the heterogeneous scenario stream (400 requests, clusters up to
+     6 wide, 16 episodes) on ``vec``, the trained Q on 512 recorded
+     states against a CPU copy (Q_TOL); (c) benchmarks/
+     bench_online_drift.py at its smoke scale (500 requests at 3.0/s, a
+     warm start of 5 offline episodes of 220; ``DRIFT_SCALE`` selects
+     the paper scale) served over the ``vec`` gateway frozen, online
+     (``OnlineTrainer`` learning on the card) and by mixing, with P95
+     E2E overall and after the flip (virtual clock) and the wall time of
+     each arm;
   6. the serving gateway: full-width llama-2-7b (32 layers, bf16, seeded
      random weights) on two engines with int8 KV caches (8 slots x 2048
      tokens), one seeded stream of 24 requests served through the port's
@@ -1002,6 +1020,315 @@ def router_phase(torch, np, m):
                           phase_s=phase_s), ckpt_dir
 
 
+# -- phase 5c: the router's scale-up -----------------------------------------
+
+# benchmarks/bench_batched_rl.py's schedule: V100 x 4, the Table-1 mixture,
+# 200 requests at 20/s, 16 episodes, 8 environments for the batched runs
+SCALE = dict(n=200, rate=20.0, m=4, episodes=16, n_envs=8)
+# examples/train_router_rl.py --hetero: the scenario stream, 400 requests
+# an episode, clusters up to 6 wide
+HETERO = dict(n=400, m_max=6)
+# benchmarks/bench_online_drift.py's scales: stream requests and rate,
+# offline episodes and requests per episode of the warm start.  The paper
+# scale took 177 s on an H100 (the online arm 124 s of it), past the 150 s
+# this part may take, so the script runs the smoke scale
+DRIFT_SCALES = {"paper": (1600, 3.5, 14, 400), "smoke": (500, 3.0, 5, 220)}
+DRIFT_SCALE = "smoke"
+DRIFT_SEED = 23
+TIMED_CALLS = 30
+HETERO_Q_STATES = 512
+EVAL_SEEDS = (991, 992)      # bench_batched_rl's held-out episodes
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _scale_cfg(m, explore):
+    return m.rl.RouterConfig(variant="guided", n_instances=SCALE["m"],
+                             explore_episodes=explore, q_arch="decomposed",
+                             seed=0)
+
+
+def _run_line(name, hist, wall, steps):
+    decisions = sum(h["ticks"] for h in hist)
+    e2e = [h["e2e_mean"] for h in hist]
+    log(f"  [{name}] {len(hist)} episodes, {decisions} decisions, {steps} "
+        f"learn steps in {wall:.3f} s wall: {decisions / wall:.1f} "
+        f"decisions/s; e2e_mean over episodes {statistics.mean(e2e):.3f} s"
+        f", last 4 {statistics.mean(e2e[-4:]):.3f} s (virtual clock)")
+    return dict(episodes=len(hist), decisions=decisions, wall_s=wall,
+                decisions_per_s=decisions / wall, learn_steps=steps,
+                e2e_mean=statistics.mean(e2e),
+                e2e_mean_last4=statistics.mean(e2e[-4:]),
+                ticks=[h["ticks"] for h in hist])
+
+
+def scale_up_throughput(torch, np, m):
+    """Part (a): the reference bench's schedule three ways on the card --
+    sequential ``rl.train``, ``train_router`` batched over the ``py``
+    stepper and over the ``vec`` pool -- then one ``act_batch`` of 8
+    rows and one learn step of 256 rows, timed and profiled."""
+    prof, wl = m.profiles.V100_LLAMA2_7B, m.wl
+
+    def reqs(seed):
+        return wl.to_requests(wl.generate(SCALE["n"], seed=seed),
+                              rate=SCALE["rate"], seed=seed + 5000)
+
+    def scenario(ep):
+        return wl.Scenario.homogeneous(prof, SCALE["m"], reqs(100 + ep),
+                                       name=f"paper-{ep}")
+    cfg = _scale_cfg(m, explore=8)
+    res = {}
+    agent = m.rl.make_agent(cfg, device="cuda")
+    out, wall = _timed(torch, lambda: m.rl.train(
+        cfg, prof, lambda ep: reqs(100 + ep), SCALE["episodes"],
+        agent=agent))
+    res["sequential"] = _run_line("sequential rl.train", out["history"],
+                                  wall, agent.steps)
+    acts, learn_host = {}, {}
+    for backend in ("py", "vec"):
+        agent = m.rl.make_agent(cfg, device="cuda")
+        act_batch, learn = agent.act_batch, agent.learn
+        host = []
+
+        def rec_act(states, masks, _f=act_batch, _b=backend, **kw):
+            if len(states) == SCALE["n_envs"] and _b not in acts:
+                acts[_b] = (np.array(states), np.array(masks), kw)
+            return _f(states, masks, **kw)
+
+        def rec_learn(sync=True, _f=learn, _h=host, _a=agent):
+            before = _a.steps
+            t = time.perf_counter()
+            out = _f(sync)                        # queued, no read-back
+            if _a.steps > before:
+                _h.append(time.perf_counter() - t)
+            return out
+        agent.act_batch, agent.learn = rec_act, rec_learn
+        bcfg = m.batched_rl.BatchedRLConfig(
+            n_envs=SCALE["n_envs"], m_max=SCALE["m"], backend=backend)
+        try:
+            out, wall = _timed(torch, lambda: m.train_router(
+                cfg, scenario, SCALE["episodes"], batch_cfg=bcfg,
+                agent=agent))
+        finally:
+            del agent.act_batch, agent.learn
+        assert all(h["n"] == SCALE["n"] for h in out["history"])
+        name = f"batched_{backend}"
+        res[name] = _run_line(f"train_router, {SCALE['n_envs']} envs, "
+                              f"{backend}", out["history"], wall,
+                              agent.steps)
+        learn_host[backend] = host
+        res[name].update(learn_host_total_s=sum(host),
+                         learn_host_median_ms=_median_ms(host))
+        log(f"  [{name}] learn calls on the host (queued, no read-back): "
+            f"{len(host)} in {sum(host):.3f} s, median "
+            f"{_median_ms(host):.3f} ms")
+    seq = res["sequential"]["decisions_per_s"]
+    for backend in ("py", "vec"):
+        r = res[f"batched_{backend}"]
+        r["vs_sequential"] = r["decisions_per_s"] / seq
+        log(f"  batched {backend} / sequential decisions/s: "
+            f"{r['vs_sequential']:.2f}x (one call, one card)")
+    res["py_vec_same_ticks"] = (res["batched_py"]["ticks"]
+                                == res["batched_vec"]["ticks"])
+    # the bench's quality check: the vec-trained router greedy on its
+    # held-out episodes, beside round robin and the impact heuristic
+    # (mixing) on the same streams
+    held = {"rl_batched": statistics.mean(
+        m.batched_rl.evaluate_scenarios(cfg, agent, [wl.Scenario.homogeneous(
+            prof, SCALE["m"], reqs(sd))])[0]["e2e_mean"]
+        for sd in EVAL_SEEDS)}
+    for name in ("round_robin", "impact_greedy"):
+        held[name] = statistics.mean(m.sim.run_heuristic(
+            m.sim.Cluster(prof, SCALE["m"]), reqs(sd),
+            m.legacy.make_policy(name, prof))["e2e_mean"]
+            for sd in EVAL_SEEDS)
+    res["held_out_e2e_mean"] = held
+    log("  held-out e2e_mean over seeds " + str(EVAL_SEEDS) + ": " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in held.items()) + " (virtual clock)")
+    # the vec run's agent: one act over 8 rows, one learn step of 256
+    states, masks, kw = acts["vec"]
+    act_s, step_s = [], []
+    for _ in range(TIMED_CALLS):
+        t = time.perf_counter()
+        agent.act_batch(states, masks, **kw)     # ends in a .cpu() copy
+        act_s.append(time.perf_counter() - t)
+    steps0 = agent.steps
+    for _ in range(TIMED_CALLS):
+        t = time.perf_counter()
+        agent.learn()                            # reads the loss back
+        step_s.append(time.perf_counter() - t)
+    assert agent.cfg.batch_size == 256
+    assert agent.steps == steps0 + TIMED_CALLS, agent.steps
+    res["act8_median_ms"] = _median_ms(act_s)
+    res["learn256_median_ms"] = _median_ms(step_s)
+    log(f"  act_batch over 8 rows median {res['act8_median_ms']:.3f} ms, "
+        f"learn step (batch 256, loss read back) median "
+        f"{res['learn256_median_ms']:.3f} ms (host clock, synchronised)")
+
+    def learn_step():
+        with torch.enable_grad():
+            agent.learn()
+    res["profiles"] = {
+        "act_batch8": profile_pass(
+            torch, lambda: agent.act_batch(states, masks, **kw),
+            res["act8_median_ms"], "act_batch (8 rows)"),
+        "learn256": profile_pass(torch, learn_step,
+                                 res["learn256_median_ms"],
+                                 "learn step (batch 256)")}
+    return res
+
+
+def scale_up_hetero(torch, np, m):
+    """Part (b): ``train_router`` over the heterogeneous scenario stream
+    on the ``vec`` pool (clusters up to 6 wide), and the trained Q on the
+    card against the CPU over states recorded in the run."""
+    cfg = _scale_cfg(m, explore=max(SCALE["episodes"] - 4, 2))
+    agent = m.rl.make_agent(cfg, m=HETERO["m_max"], device="cuda")
+    act_batch = agent.act_batch
+    recorded = []
+
+    def rec_act(states, masks, prior=None, q_squash=0.0, **kw):
+        a = act_batch(states, masks, prior=prior, q_squash=q_squash, **kw)
+        for i in np.flatnonzero(masks.any(1)):
+            recorded.append((np.array(states[i]), np.array(masks[i]),
+                             None if prior is None else np.array(prior[i]),
+                             q_squash))
+        return a
+    agent.act_batch = rec_act
+    try:
+        out, wall = _timed(torch, lambda: m.train_router(
+            cfg, m.wl.scenario_stream(0, n_requests=HETERO["n"]),
+            SCALE["episodes"], batch_cfg=m.batched_rl.BatchedRLConfig(
+                m_max=HETERO["m_max"], backend="vec"), agent=agent))
+    finally:
+        del agent.act_batch
+    hist = out["history"]
+    assert all(h["n"] == HETERO["n"] for h in hist), hist
+    res = _run_line("hetero stream, vec", hist, wall, agent.steps)
+    res["widths"] = sorted({h["m"] for h in hist})
+    # the trained network's own greedy actions on the recorded inputs, so
+    # that the CPU copy is held to the card's decisions, not to training's
+    idx = np.linspace(0, len(recorded) - 1,
+                      min(HETERO_Q_STATES, len(recorded))).astype(int)
+    rows = [recorded[i][:4] for i in idx]
+    rows = [r + (agent.act(r[0], r[1], prior=r[2], q_squash=r[3]),)
+            for r in rows]
+    res["q_check"] = check_q_on_cpu(torch, np, m, agent, rows)
+    return res
+
+
+def _serve_drift(m, np, scn, policy):
+    """bench_online_drift's arm: the drift stream through a gateway over
+    the ``vec`` pool with its chaos, failover, oracle lengths and a
+    breaker that does not mask the straggler."""
+    reqs = [m.Request(prompt_tokens=r.prompt_tokens,
+                      decode_tokens=r.decode_tokens, arrival=r.arrival,
+                      task=r.task, tenant=r.tenant) for r in scn.requests]
+    gcfg = m.GatewayConfig(chaos=scn.meta["chaos"], failover=True,
+                           max_retries=3, max_time=7200.0,
+                           breaker_factor=50.0, backend="vec")
+    gw = m.Gateway(gcfg, scn.profiles, policy, length=m.OracleLength())
+    t0 = time.perf_counter()
+    stats = gw.run(reqs)
+    wall = time.perf_counter() - t0
+    done = [r for r in reqs if r.finished is not None]
+    flip = scn.meta["flip_time"]
+
+    def p95(vals):
+        return float(np.quantile(np.asarray(vals, float), 0.95))
+    assert stats["n"] + stats["shed"] + stats["cancelled"] == len(reqs)
+    return dict(served=stats["n"], wall_s=wall,
+                p95_e2e=p95([r.e2e for r in done]),
+                postflip_p95_e2e=p95([r.e2e for r in done
+                                      if r.arrival >= flip]))
+
+
+def scale_up_online(torch, np, m):
+    """Part (c): bench_online_drift at ``DRIFT_SCALE`` -- a warm start
+    trained offline on the pre-flip mix, then the drift stream served
+    frozen, online (learning on the card) and by mixing."""
+    n_req, rate, episodes, ep_req = DRIFT_SCALES[DRIFT_SCALE]
+    prof, wl = m.profiles.V100_LLAMA2_7B, m.wl
+    rcfg = m.rl.RouterConfig(variant="guided", n_instances=4,
+                             q_arch="decomposed", seed=0,
+                             include_health_features=True)
+    scn = wl.make_drift_scenario(seed=DRIFT_SEED, n_requests=n_req,
+                                 rate=rate, profiles=(prof,) * 4,
+                                 straggler_factor=4.0)
+    ckpt = os.path.join(ROOT, "build", "online_warm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def stream(ep):
+        return wl.make_tenant_scenario(
+            seed=1000 + ep, tenants=wl.DRIFT_PRE_TENANTS, n_requests=ep_req,
+            rate=rate, pattern="poisson", profiles=(prof,) * 4).requests
+    out, pre_wall = _timed(torch, lambda: m.rl.train(rcfg, prof, stream,
+                                                     n_episodes=episodes))
+    m.save_learner(ckpt, step=episodes, agent=out["agent"])
+    log(f"  warm start: {episodes} offline episodes of {ep_req} requests "
+        f"on the pre-flip mix in {pre_wall:.3f} s, "
+        f"{out['agent'].steps} learn steps; full learner checkpointed")
+    res = dict(scale=DRIFT_SCALE, n_requests=n_req, rate=rate,
+               pretrain_s=pre_wall)
+    frozen = m.rl.make_agent(rcfg, device="cuda")
+    assert m.restore_learner(ckpt, frozen) == episodes
+    res["frozen"] = _serve_drift(m, np, scn, m.RLPolicy(frozen, rcfg))
+    trainer = m.OnlineTrainer(rcfg, m.OnlineConfig(
+        warm_start=ckpt, eps=0.03, guard=True, guard_window=48,
+        guard_regret=0.12, guard_cooldown=20.0, seed=0))
+    assert trainer.warm_started_step == episodes
+    steps0 = trainer.agent.steps
+    res["online"] = _serve_drift(m, np, scn, trainer.policy)
+    tel = trainer.telemetry()
+    res["online"].update(
+        learner_steps=trainer.agent.steps - steps0,
+        publishes=int(tel["publishes"]),
+        fallback_entries=int(tel["fallback_entries"]),
+        transitions=int(tel["transitions"]), explored=int(tel["explored"]))
+    res["mixing"] = _serve_drift(m, np, scn, m.make_gateway_policy(
+        "mixing", rcfg))
+    for arm in ("frozen", "online", "mixing"):
+        r = res[arm]
+        log(f"  [{arm}] served {r['served']} of {n_req} in "
+            f"{r['wall_s']:.3f} s wall; P95 E2E {r['p95_e2e']:.3f} s, "
+            f"after the flip {r['postflip_p95_e2e']:.3f} s (virtual clock)")
+    o = res["online"]
+    res["online_ms_per_request"] = ((o["wall_s"] - res["frozen"]["wall_s"])
+                                    / o["served"] * 1e3)
+    log(f"  [online] {o['learner_steps']} learner steps, {o['publishes']} "
+        f"publishes, {o['fallback_entries']} fallback entries, "
+        f"{o['transitions']} transitions, {o['explored']} explored; the "
+        f"learner's cost over the frozen arm "
+        f"{res['online_ms_per_request']:.3f} ms wall per served request")
+    return res
+
+
+def scale_up_phase(torch, np, m):
+    """Phase 5c: parts (a)-(c), each path's launch counts reset before it
+    and read after it (no kernel of the port runs on this path)."""
+    out, launches = {}, {}
+    for name, part in (("batched", scale_up_throughput),
+                       ("hetero", scale_up_hetero),
+                       ("online", scale_up_online)):
+        torch.cuda.synchronize()
+        reset_launches(m)
+        t0 = time.perf_counter()
+        out[name] = part(torch, np, m)
+        torch.cuda.synchronize()
+        launches[name] = read_launches(m)
+        out[name]["part_s"] = time.perf_counter() - t0
+        assert not any(launches[name].values()), launches
+        log(f"  part {name}: {out[name]['part_s']:.1f} s; launches "
+            f"{launches[name]}")
+    return launches, out
+
+
 # -- phases 6 and 7: the gateway over full-width engines ---------------------
 
 GATEWAY_RATE = 1.0           # arrivals per second of the virtual clock
@@ -1239,7 +1566,9 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import dqn, profiles, rl_router as rl
+    from repro_torch.core import batched_rl, dqn, profiles, rl_router as rl
+    from repro_torch.core import policies as legacy
+    from repro_torch.core import simulator as sim
     from repro_torch.core import predictor as pred_lib
     from repro_torch.core import workload as wl
     from repro_torch.kernels import build
@@ -1252,13 +1581,19 @@ def main(argv=None) -> int:
     from repro_torch.models.attention import quantize_kv
     from repro_torch.serving import obs
     from repro_torch.serving.engine import LLMInstance
-    from repro_torch.serving.gateway import MicroBatchPredictor
+    from repro_torch.serving.gateway import (Gateway, GatewayConfig,
+                                             MicroBatchPredictor,
+                                             OracleLength)
     from repro_torch.serving.policies import (RLPolicy, make_gateway_policy,
                                               restore_rl_policy)
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import get_scheduler
     from repro_torch.training.checkpoint import (CheckpointManager,
-                                                 _flatten as flatten_tree)
+                                                 _flatten as flatten_tree,
+                                                 restore_learner,
+                                                 save_learner)
+    from repro_torch.training.online import OnlineConfig, OnlineTrainer
+    from repro_torch.training.train_loop import train_router
     assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                    or m == "repro" for m in sys.modules), "JAX imported"
 
@@ -1306,7 +1641,12 @@ def main(argv=None) -> int:
         ms=ms, pred_lib=pred_lib, wl=wl, obs=obs,
         MicroBatchPredictor=MicroBatchPredictor,
         restore_rl_policy=restore_rl_policy,
-        CheckpointManager=CheckpointManager, flatten_tree=flatten_tree)
+        CheckpointManager=CheckpointManager, flatten_tree=flatten_tree,
+        batched_rl=batched_rl, train_router=train_router,
+        OnlineConfig=OnlineConfig, OnlineTrainer=OnlineTrainer,
+        save_learner=save_learner, restore_learner=restore_learner,
+        Gateway=Gateway, GatewayConfig=GatewayConfig,
+        OracleLength=OracleLength, sim=sim, legacy=legacy)
     log("[5/7] serve full-width qwen3-0.6b through serve_engine")
     launches, served = serve(torch, np, mods)
     torch.cuda.empty_cache()
@@ -1314,6 +1654,11 @@ def main(argv=None) -> int:
     log("[5b/7] the router's learning path: predictor and DQN router "
         "trained on the card, checkpointed, serving the simulator")
     router_launches, router, ckpt_dir = router_phase(torch, np, mods)
+
+    log("[5c/7] the router's scale-up on the card: batched training over "
+        "py and vec, the heterogeneous stream, online learning under "
+        "drift")
+    scale_launches, scale_up = scale_up_phase(torch, np, mods)
 
     log("[6/7] the gateway over full-width llama-2-7b (int8 KV cache) "
         "through serve_gateway, policies rl (restored) and mixing")
@@ -1325,10 +1670,13 @@ def main(argv=None) -> int:
     mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods,
                                                         ckpt_dir)
     # each path's own counts (reset before it, read after it): phase 5's
-    # serve_engine, phase 5b's router path, phase 6's gateway under each
-    # policy, phase 7's
+    # serve_engine, phase 5b's router path, phase 5c's three parts, phase
+    # 6's gateway under each policy, phase 7's
     by_path = {"serve_engine": launches,
                "router": router_launches,
+               "batched": scale_launches["batched"],
+               "hetero": scale_launches["hetero"],
+               "online": scale_launches["online"],
                "gateway_rl": gw_launches["rl"],
                "gateway_mixing": gw_launches["mixing"],
                "gateway_mamba_rl": mamba_launches["rl"]}
@@ -1370,6 +1718,7 @@ def main(argv=None) -> int:
                                "timing_shapes": {n: t["shape"]
                                                  for n, t in times.items()},
                                "serve": served, "router": router,
+                               "scale_up": scale_up,
                                "gateway": gateway,
                                "gateway_mamba": mamba_gateway})
     log(gpu)

@@ -20,14 +20,14 @@ evidently intended penalty  + w_k * h.
 This is the port of the router: the configuration, the r_mixing
 scoring and guidance prior every gateway policy reads, the agent
 factory, and the training half (``BacklogTracker``, ``RoutingEnv``,
-``NStepAssembler``, ``train``, ``evaluate``) over the ``py`` simulator
-stepper.  The vectorized and device-resident simulators, and the
-multi-episode pools the batched trainer packs episodes into, come with
-a later slice of the port; asking ``RoutingEnv`` for them raises.
+``NStepAssembler``, ``train``, ``evaluate``) over the ``py`` and
+``vec`` simulators, and the multi-episode ``vec`` pools the batched
+trainer (``core.batched_rl``) packs episodes into.
 """
 from __future__ import annotations
 
 import copy
+import warnings
 from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, Optional, Sequence
@@ -141,14 +141,24 @@ def mixing_scores(cluster, req: Request, d_hat: int,
     fraction per instance (core.prefix_cache), making the heuristic
     cache-affine; the fractions come from the same shared scalar query
     on both backends, so scores stay bit-identical py-vs-vec."""
-    sums = [inst.resident_token_sum() + inst.queued_prompt_sum()
-            for inst in cluster.instances]
-    scores = impact.mixing_heterogeneous(
-        [inst.profile for inst in cluster.instances],
-        req.prompt_tokens, d_hat, sums, alpha)
-    for i, inst in enumerate(cluster.instances):
-        if inst.failed:
-            scores[i] = -np.inf
+    if getattr(cluster, "is_vec", False):
+        # vecsim backend: Eq. 1-2 evaluated in one vector pass over the
+        # packed lane arrays (bit-identical to the scalar loop)
+        pool, lanes = cluster.pool, cluster.lane_ids
+        scores = impact.mixing_vec(
+            pool.grad1[lanes], pool.grad2[lanes], pool.eps_lat[lanes],
+            float(req.prompt_tokens), d_hat,
+            pool.rts[lanes] + pool.qps[lanes], alpha)
+        scores[pool.failed[lanes]] = -np.inf
+    else:
+        sums = [inst.resident_token_sum() + inst.queued_prompt_sum()
+                for inst in cluster.instances]
+        scores = impact.mixing_heterogeneous(
+            [inst.profile for inst in cluster.instances],
+            req.prompt_tokens, d_hat, sums, alpha)
+        for i, inst in enumerate(cluster.instances):
+            if inst.failed:
+                scores[i] = -np.inf
     if cache_weight:
         # failed lanes stay -inf (-inf + finite == -inf)
         scores = scores + cache_weight * np.asarray(
@@ -173,8 +183,13 @@ def guidance_from_scores(cluster, req: Request, d_hat: int,
     action is encouraged instead."""
     out = np.zeros(cluster.m + 1, np.float32)
     need = req.prompt_tokens + d_hat
-    fits = np.array([inst.free_tokens() >= need and not inst.failed
-                     for inst in cluster.instances])
+    if getattr(cluster, "is_vec", False):
+        pool, lanes = cluster.pool, cluster.lane_ids
+        fits = ((pool.cap[lanes] - pool.rts[lanes] - pool.qps[lanes]
+                 >= need) & ~pool.failed[lanes])
+    else:
+        fits = np.array([inst.free_tokens() >= need and not inst.failed
+                         for inst in cluster.instances])
     scores = scores + np.where(fits, 0.0, -0.3)
     finite = scores[np.isfinite(scores)]
     top = finite.max() if finite.size else 0.0
@@ -193,29 +208,37 @@ class BacklogTracker:
     request every 0.02 s tick (which dominated episode wall time), we
     maintain S = sum 1/t_hat and T = sum frac/t_hat via arrival /
     decode / preempt / finish events and read ``penalty() = T - S`` in
-    O(1).  The decode/preempt events come from SimInstance hooks
-    (installed here).  Shared by RoutingEnv and the online gateway
-    trainer so both compute identical reward streams over identical
-    event streams."""
+    O(1).  On the Python stepper the decode/preempt events come from
+    SimInstance hooks (installed here); the vec backend maintains the
+    same accumulators inside its fused round loop
+    (``pool.set_backlog_terms``).  Shared by RoutingEnv and the online
+    gateway trainer (training.online) so both compute identical
+    reward streams over identical event streams."""
 
     def __init__(self, cluster, profile, predict_decode):
         self.cluster = cluster
         self.profile = profile
         self.predict_decode = predict_decode
+        self.vec = getattr(cluster, "is_vec", False)
         self.S = 0.0
         self.T = 0.0
         self.inv: Dict[int, tuple] = {}      # rid -> (1/d_hat, 1/t_hat)
-        for inst in cluster.instances:
-            inst.on_token = self.on_token
-            inst.on_preempt = self.on_preempt
+        if not self.vec:
+            for inst in cluster.instances:
+                inst.on_token = self.on_token
+                inst.on_preempt = self.on_preempt
 
     def register(self, r) -> None:
         """Account one request that entered the router queue."""
         d_hat = max(self.predict_decode(r), 1)
         inv_t = 1.0 / max(
             self.profile.request_time(r.prompt_tokens, d_hat), 1e-3)
-        self.inv[r.rid] = (1.0 / d_hat, inv_t)
-        self.S += inv_t
+        if self.vec:
+            self.cluster.pool.set_backlog_terms(
+                self.cluster.gid_of(r), self.cluster.ep, d_hat, inv_t)
+        else:
+            self.inv[r.rid] = (1.0 / d_hat, inv_t)
+            self.S += inv_t
 
     def on_token(self, r):
         iv = self.inv.get(r.rid)
@@ -233,6 +256,8 @@ class BacklogTracker:
             self.T -= min(r.decoded * iv[0], 1.0) * iv[1]
 
     def note_finished(self, done_now):
+        if self.vec:
+            return            # the pool settles S/T at completion time
         for r in done_now:
             iv = self.inv.pop(r.rid, None)
             if iv is not None:
@@ -240,6 +265,10 @@ class BacklogTracker:
                 self.T -= min(r.decoded * iv[0], 1.0) * iv[1]
 
     def penalty(self) -> float:
+        if self.vec:
+            pool = self.cluster.pool
+            ep = self.cluster.ep
+            return float(pool.bk_t[ep] - pool.bk_s[ep])
         return self.T - self.S
 
 
@@ -250,10 +279,14 @@ class RoutingEnv:
     wide -- the paper's setup) or a sequence of per-instance profiles
     (heterogeneous cluster; its length overrides cfg.n_instances).
 
-    The episode steps on the ``py`` simulator.  The reference's other
-    backends (``backend="vec"``/``"jax"``, the deprecated
-    ``sim_backend=`` alias, and a shared multi-episode ``pool``) come
-    with a later slice of the port and raise ``NotImplementedError``."""
+    ``backend`` names any ``core.backends`` registry backend:
+    ``"vec"`` steps the episode on the vectorized structure-of-arrays
+    simulator (`core.vecsim`), ``"jax"`` on the device-resident jitted
+    round loop (`core.jaxsim`).  Passing a shared ``pool`` +
+    ``pool_ep`` instead packs this episode into a multi-episode pool
+    so the batched trainer advances all its episodes in fused rounds.
+    ``sim_backend=`` is the deprecated pre-registry alias of
+    ``backend=``."""
 
     def __init__(self, cfg: RouterConfig, profile,
                  predict_decode: Optional[Callable] = None,
@@ -267,15 +300,17 @@ class RoutingEnv:
             self.profiles = tuple(profile)
         self.profile = self.profiles[0]     # router-level reference
         self.m = len(self.profiles)
-        if sim_backend is not None or pool is not None or (
-                backend not in (None, "py")):
-            asked = ("a multi-episode pool" if pool is not None
-                     else f"backend {backend or sim_backend!r}")
-            raise NotImplementedError(
-                f"RoutingEnv over {asked} is not ported yet: the port "
-                "steps episodes on the 'py' simulator; the vectorized "
-                "and device-resident backends come with a later slice")
-        self.sim_backend = "py"
+        if sim_backend is not None:
+            warnings.warn(
+                "RoutingEnv(sim_backend=...) is deprecated; use "
+                "backend=... — backends now resolve through the "
+                "core.backends registry", DeprecationWarning,
+                stacklevel=2)
+            backend = backend or sim_backend
+        backend = backend or "py"
+        self.sim_backend = "vec" if pool is not None else backend
+        self._pool = pool
+        self._pool_ep = pool_ep
         # d-hat: estimated decode tokens for a request (predictor hook;
         # oracle fallback)
         self.predict_decode = predict_decode or (
@@ -283,11 +318,22 @@ class RoutingEnv:
 
     def reset(self, requests: Sequence[Request]):
         c = self.cfg
-        self.cluster = Cluster(
-            self.profiles, self.m, c.scheduler, c.dt,
-            c.chunked_prefill, c.n_slots,
-            prefix_cache_tokens=c.prefix_cache_tokens,
-            prefix_block=c.prefix_block)
+        if self._pool is not None:
+            from repro_torch.core.vecsim import VecCluster
+            self.cluster = VecCluster(
+                self.profiles, self.m, c.scheduler, c.dt,
+                c.chunked_prefill, c.n_slots, pool=self._pool,
+                ep=self._pool_ep,
+                prefix_cache_tokens=c.prefix_cache_tokens,
+                prefix_block=c.prefix_block)
+        else:
+            self.cluster = Cluster(
+                self.profiles, self.m, c.scheduler, c.dt,
+                c.chunked_prefill, c.n_slots,
+                backend=self.sim_backend,
+                prefix_cache_tokens=c.prefix_cache_tokens,
+                prefix_block=c.prefix_block)
+        self._vec = getattr(self.cluster, "is_vec", False)
         self.pending = sorted(requests, key=lambda r: r.arrival)
         self.n_total = len(self.pending)
         # Incremental backlog penalty (Eq. 3 term 1): see BacklogTracker.
@@ -353,7 +399,9 @@ class RoutingEnv:
 
     def _apply_action(self, action: int, guide_w: float = 0.0) -> float:
         """Apply one routing decision (SLA watchdog included); returns
-        the immediate mixing-term reward."""
+        the immediate mixing-term reward.  Factored out of step() so
+        the batched trainer's fused multi-episode stepping can apply
+        all episodes' actions before one fused advance."""
         c = self.cfg
         cluster = self.cluster
         mix_term = 0.0
@@ -384,12 +432,57 @@ class RoutingEnv:
 
     def _after_tick(self, done_now) -> tuple:
         """Per-tick bookkeeping after a cluster advance: -> (reward
-        delta, done flag)."""
+        delta, done flag).  Shared by step() and the fused stepping."""
         c = self.cfg
         self._note_finished(done_now)
         self._deliver()
         if not c.potential_shaping:
             delta = (self._backlog_penalty() * c.dt
+                     + c.r_w * len(done_now))
+        else:
+            delta = c.r_w_shaped * len(done_now)
+        done = (len(self.cluster.completed) >= self.n_total
+                or self.cluster.t > c.max_time)
+        return delta, done
+
+    def _span_bounds(self, cap: int = 256) -> list:
+        """Tick boundaries (sequential ``t += dt``, bit-matching the
+        per-tick stepper) from now until the next arrival, past
+        ``max_time``, or ``cap`` ticks -- the window the fused batched
+        stepper may advance in one shot: no arrivals can land inside
+        it, so no decision point can be crossed.  A non-empty router
+        queue is already a decision point after one tick (the per-tick
+        stepper re-decides immediately on a deferred head), so the
+        span is a single tick then."""
+        c = self.cfg
+        t = self.cluster.t
+        if self.cluster.central:
+            return [t + c.dt]
+        na = (self.pending[self._i].arrival
+              if self._i < self.n_total else None)
+        bounds = []
+        while len(bounds) < cap:
+            t = t + c.dt
+            bounds.append(t)
+            if (na is not None and t >= na) or t > c.max_time:
+                break
+        return bounds
+
+    def _after_span(self, done_now, bk_reward: float) -> tuple:
+        """Span-level bookkeeping: -> (reward delta, done flag).
+        ``bk_reward`` is the pool-reconstructed per-tick backlog
+        integral over the span (zero-length contribution under
+        potential shaping, which rewards completions only)."""
+        c = self.cfg
+        pool, ep = self.cluster.pool, self.cluster.ep
+        s_before = float(pool.bk_s[ep])
+        self._deliver()
+        if not c.potential_shaping:
+            # the per-tick stepper samples the backlog AFTER the
+            # arrival tick's deliveries; fold the new arrivals' S into
+            # the span's final sample
+            delta_s = float(pool.bk_s[ep]) - s_before
+            delta = (bk_reward - delta_s * c.dt
                      + c.r_w * len(done_now))
         else:
             delta = c.r_w_shaped * len(done_now)
@@ -574,8 +667,11 @@ def train(cfg: RouterConfig, profile: HardwareProfile,
 
 def evaluate(cfg: RouterConfig, profile: HardwareProfile, agent: DQNAgent,
              requests: Sequence[Request],
-             predict_decode: Optional[Callable] = None) -> Dict:
-    env = RoutingEnv(cfg, profile, predict_decode)
+             predict_decode: Optional[Callable] = None,
+             backend: str = "py") -> Dict:
+    """Greedy (epsilon=0, no learning) episode on any registry
+    ``backend``; the request stats plus spikes and the router wait."""
+    env = RoutingEnv(cfg, profile, predict_decode, backend=backend)
     s = env.reset(requests)
     done = False
     w_sel = cfg.guidance_floor if cfg.variant == "guided" else 0.0
@@ -584,6 +680,8 @@ def evaluate(cfg: RouterConfig, profile: HardwareProfile, agent: DQNAgent,
         a = agent.act(s, env.mask(), epsilon=0.0, prior=prior,
                       q_squash=cfg.q_squash if w_sel else 0.0)
         s, _, done, _ = env.step(a)
+    if getattr(env.cluster, "is_vec", False):
+        env.cluster.sync_all()       # in-flight requests on truncation
     stats = summarize(requests)
     stats["spikes"] = sum(len(i.spikes) for i in env.cluster.instances)
     stats["router_wait_mean"] = float(np.mean(

@@ -1,6 +1,7 @@
 """Discrete-event cluster simulator for routing experiments (the port's
 own copy of ``repro.core.simulator``: ``SimInstance``, ``Cluster`` and
-``run_heuristic``; the gateway and the featurizer read its ``Cluster``).
+``run_heuristic``; ``Cluster(backend=...)`` dispatches through
+``core.backends``).
 
 ``SimInstance`` mirrors the real engine's continuous-batching semantics
 (slot admission via an instance scheduler, one admission per iteration,
@@ -325,9 +326,28 @@ class Cluster:
     case ``n_instances`` must match and ``cluster.profile`` is the first
     entry (the router-level reference profile).
 
-    ``backend`` is the simulator implementation: only ``"py"`` (this
-    Python stepper, the reference oracle) is ported; the vectorized and
-    device-resident backends come with a later slice of the port."""
+    ``backend`` resolves through the ``core.backends`` registry:
+    ``"vec"`` returns the vectorized structure-of-arrays implementation
+    (`core.vecsim.VecCluster`, decision-for-decision identical;
+    O(rounds) stepping instead of O(requests x instances)) -- the
+    Python stepper remains the reference oracle."""
+
+    def __new__(cls, profile=None, n_instances: int = 0,
+                scheduler: str = "fcfs", dt: float = 0.02,
+                chunked_prefill: int = 0,
+                n_slots: Optional[int] = None, backend: str = "py",
+                prefix_cache_tokens: int = 0, prefix_block: int = 32,
+                trace=None):
+        if cls is Cluster and backend != "py":
+            from repro_torch.core.backends import make_backend
+            # registry backends are not Cluster subclasses, so
+            # __init__ below is not re-run on the returned object
+            return make_backend(backend).make_cluster(
+                profile, n_instances, scheduler=scheduler, dt=dt,
+                chunked_prefill=chunked_prefill, n_slots=n_slots,
+                prefix_cache_tokens=prefix_cache_tokens,
+                prefix_block=prefix_block, trace=trace)
+        return super().__new__(cls)
 
     def __init__(self, profile, n_instances: int,
                  scheduler: str = "fcfs", dt: float = 0.02,
@@ -335,11 +355,6 @@ class Cluster:
                  n_slots: Optional[int] = None, backend: str = "py",
                  prefix_cache_tokens: int = 0, prefix_block: int = 32,
                  trace=None):
-        if backend != "py":
-            raise NotImplementedError(
-                f"simulator backend {backend!r} is not ported yet: the "
-                "port has the 'py' stepper; 'vec' and the device-resident "
-                "backend come with a later slice")
         if isinstance(profile, HardwareProfile):
             profiles = [profile] * n_instances
         else:
@@ -467,6 +482,8 @@ def run_heuristic(cluster: Cluster, requests: Sequence[Request], policy,
                 break               # defer
             cluster.route(act)
         cluster.advance()
+    if getattr(cluster, "is_vec", False):
+        cluster.sync_all()       # in-flight requests on truncated runs
     from repro_torch.serving.request import summarize
     stats = summarize(requests)
     stats["spikes"] = sum(len(inst.spikes) for inst in cluster.instances)

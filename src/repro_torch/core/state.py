@@ -29,9 +29,10 @@ score and the instance's slowdown ``1 - 1/speed_factor`` (both in
 [0, 1]) so an agent can learn to route around stragglers before the
 circuit breaker trips (off by default, same shape-compat reasoning).
 
-This is the port's own copy of the scalar (numpy) featurizer; the
-batched featurizers over the vectorized and device-resident simulators
-come with those simulators' slices of the port.
+This is the port's own copy of the numpy featurizers: the scalar path
+and the batched one over the vectorized simulator
+(``featurize_vec_many``); the device-resident twin comes with that
+simulator's slice of the port.
 """
 from __future__ import annotations
 
@@ -95,6 +96,13 @@ def featurize(cluster: Cluster, profile: HardwareProfile,
               include_hardware: bool = False,
               include_cache: bool = False,
               include_health: bool = False) -> np.ndarray:
+    if getattr(cluster, "is_vec", False):
+        # vecsim backend: read the packed per-slot arrays directly
+        # (bit-identical features, no Python object scans)
+        return _featurize_vec(cluster, profile, predict_bucket,
+                              n_buckets, include_impact,
+                              predict_decode, alpha, include_hardware,
+                              include_cache, include_health)
     # Featurization runs once per router decision; it is written as a
     # single pass of scalar Python per instance because numpy call
     # overhead dominates at these sizes (a handful of residents).
@@ -200,6 +208,179 @@ def featurize(cluster: Cluster, profile: HardwareProfile,
     return np.asarray(feats, np.float32)
 
 
+def _featurize_vec(cluster, profile: HardwareProfile,
+                   predict_bucket, n_buckets: int, include_impact: bool,
+                   predict_decode, alpha: float,
+                   include_hardware: bool = False,
+                   include_cache: bool = False,
+                   include_health: bool = False) -> np.ndarray:
+    """Featurize straight from a VecCluster's packed structure-of-arrays
+    state -- the single-cluster view of :func:`featurize_vec_many`."""
+    return featurize_vec_many(
+        [cluster], [profile], [predict_decode], n_buckets=n_buckets,
+        include_impact=include_impact, alpha=alpha,
+        predict_buckets=[predict_bucket],
+        include_hardware=include_hardware,
+        include_cache=include_cache, include_health=include_health)[0]
+
+
+def featurize_vec_many(clusters, profiles, predict_decodes,
+                       n_buckets: int = 8, include_impact: bool = True,
+                       alpha: float = 0.5, predict_buckets=None,
+                       include_hardware: bool = False,
+                       include_cache: bool = False,
+                       include_health: bool = False):
+    """Featurize MANY VecClusters sharing one pool in a single
+    vectorized pass over the concatenated lane set (the batched
+    trainer's per-round state build: one set of matrix ops instead of
+    one per episode).  Every expression mirrors the scalar path's
+    association order on exact-integer values, so the produced float32
+    vectors are bit-identical to ``featurize`` on the Python stepper
+    (asserted by tests/test_vecsim.py)."""
+    pool = clusters[0].pool
+    lanes_cat = np.concatenate([c.lane_ids for c in clusters])
+    n = lanes_cat.size
+    hw = pool._hw
+    heads = [c.central[0] if c.central else None for c in clusters]
+    dims = instance_dims(include_impact, include_hardware,
+                         include_cache, include_health)
+    occ = pool.s_state[:, :hw][lanes_cat] != 0
+    p = pool.s_prompt[:, :hw][lanes_cat]
+    d = pool.s_decoded[:, :hw][lanes_cat]
+    ctx = ((pool.s_prefilled[:, :hw][lanes_cat] + d) * occ).sum(1)
+    left = (pool.s_dtotal[:, :hw][lanes_cat] - d) + ~occ * (1 << 62)
+    min_left = left.min(1) if hw else np.zeros(n, np.int64)
+    has_res = occ.any(1) if hw else np.zeros(n, bool)
+    lo_p, hi_p = (p < _E0) & occ, (p >= _E1) & occ
+    lo_d, hi_d = (d < _E0) & occ, (d >= _E1) & occ
+    scale = pool.nslots[lanes_cat]
+    block = np.zeros((n, dims))
+    block[:, 0] = lo_p.sum(1) / scale
+    block[:, 1] = (occ & ~lo_p & ~hi_p).sum(1) / scale
+    block[:, 2] = hi_p.sum(1) / scale
+    block[:, 3] = lo_d.sum(1) / scale
+    block[:, 4] = (occ & ~lo_d & ~hi_d).sum(1) / scale
+    block[:, 5] = hi_d.sum(1) / scale
+    q_prompt = pool.qps[lanes_cat]
+    cap = pool.cap[lanes_cat]
+    free = (cap - ctx - q_prompt) / cap
+    block[:, 6] = np.minimum(1.0, np.maximum(-1.0, free))
+    t_c = np.maximum(min_left, 0) * pool.tdec[lanes_cat] / 10.0
+    block[:, 7] = np.where(t_c > 1.0, 1.0, t_c) * has_res
+    alive = ~pool.failed[lanes_cat]
+    if include_impact:
+        p_head, d_head, has_head = _impact_heads(clusters, heads,
+                                                 predict_decodes, n)
+        score = impact.mixing_vec(
+            pool.grad1[lanes_cat], pool.grad2[lanes_cat],
+            pool.eps_lat[lanes_cat], p_head, d_head, ctx + q_prompt,
+            alpha)
+        block[:, 8] = (np.minimum(1.0, np.maximum(-5.0, score))
+                       * has_head)
+    if include_hardware:
+        hb = INSTANCE_DIMS + (1 if include_impact else 0)
+        block[:, hb] = np.minimum(pool.grad1[lanes_cat] * HW_G1_SCALE,
+                                  1.0)
+        block[:, hb + 1] = np.minimum(pool.grad2[lanes_cat]
+                                      * HW_G2_SCALE, 1.0)
+        block[:, hb + 2] = np.minimum(pool.cap[lanes_cat]
+                                      * HW_CAP_SCALE, 1.0)
+    if include_cache:
+        _fill_cache_col(block, clusters, heads, pool, include_impact,
+                        include_hardware)
+    if include_health:
+        _fill_health_cols(block, clusters, pool, lanes_cat,
+                          include_impact, include_hardware,
+                          include_cache)
+    block *= alive[:, None]
+    return _assemble(block, clusters, heads, profiles,
+                     predict_buckets, dims, n_buckets)
+
+
+def _impact_heads(clusters, heads, predict_decodes, n):
+    """Per-lane head-of-queue prompt/decode arrays (host: reads Request
+    objects)."""
+    p_head = np.zeros(n)
+    d_head = np.zeros(n)
+    has_head = np.zeros(n, bool)
+    pos = 0
+    for c, head, pd in zip(clusters, heads, predict_decodes):
+        if head is not None:
+            d_hat = pd(head) if pd else head.decode_tokens
+            p_head[pos:pos + c.m] = head.prompt_tokens
+            d_head[pos:pos + c.m] = d_hat
+            has_head[pos:pos + c.m] = True
+        pos += c.m
+    return p_head, d_head, has_head
+
+
+def _fill_cache_col(block, clusters, heads, pool, include_impact,
+                    include_hardware):
+    # PrefixCache queries are plain dict lookups on the SAME object
+    # the stepping code mutates, so this scalar loop produces the
+    # exact floats the scalar path does
+    cb = (INSTANCE_DIMS + (1 if include_impact else 0)
+          + (HW_DIMS if include_hardware else 0))
+    pos_c = 0
+    for c, head in zip(clusters, heads):
+        hashes = (getattr(head, "prefix_hashes", None)
+                  if head is not None else None)
+        if hashes:
+            for j, lane in enumerate(c.lane_ids):
+                pc = pool.lane_cache[int(lane)]
+                if pc is not None:
+                    block[pos_c + j, cb] = pc.hit_fraction(
+                        head.prompt_tokens, hashes)
+        pos_c += c.m
+
+
+def _fill_health_cols(block, clusters, pool, lanes_cat, include_impact,
+                      include_hardware, include_cache):
+    hlb = (INSTANCE_DIMS + (1 if include_impact else 0)
+           + (HW_DIMS if include_hardware else 0)
+           + (CACHE_DIMS if include_cache else 0))
+    pos_h = 0
+    for c in clusters:
+        hs = getattr(c, "health_scores", None)
+        if hs is not None:
+            k = min(c.m, len(hs))
+            block[pos_h:pos_h + k, hlb] = np.asarray(hs)[:k]
+        pos_h += c.m
+    # slowdown 1 - 1/speed: elementwise match of the scalar path
+    block[:, hlb + 1] = 1.0 - 1.0 / pool.speed[lanes_cat]
+
+
+def _assemble(block, clusters, heads, profiles, predict_buckets, dims,
+              n_buckets):
+    """Per-cluster state vectors from the [n, dims] lane block plus the
+    4 router dims (host floats; identical on every backend)."""
+    out = []
+    pos = 0
+    if predict_buckets is None:
+        predict_buckets = [None] * len(clusters)
+    for c, head, prof, pb in zip(clusters, heads, profiles,
+                                 predict_buckets):
+        m = c.m
+        feats = np.zeros(dims * m + ROUTER_DIMS)
+        feats[:dims * m] = block[pos:pos + m].ravel()
+        pos += m
+        feats[dims * m] = min(len(c.central), 512) / 512.0
+        if head is not None:
+            if head.predicted_bucket is not None:
+                bucket = head.predicted_bucket
+            elif pb is not None:
+                bucket = pb(head)
+            else:
+                bucket = prof.bucketize(head.decode_tokens, n_buckets)
+            feats[dims * m + 1] = min(head.prompt_tokens, 2048) / 2048.0
+            feats[dims * m + 2] = bucket / max(n_buckets - 1, 1)
+            wait = (c.t - head.arrival) / 10.0
+            feats[dims * m + 3] = 1.0 if wait > 1.0 else (
+                0.0 if wait < 0.0 else wait)
+        out.append(feats.astype(np.float32))
+    return out
+
+
 def pad_state(s: np.ndarray, m: int, m_max: int,
               include_impact: bool = True,
               include_hardware: bool = False,
@@ -227,6 +408,12 @@ def action_mask(cluster: Cluster) -> np.ndarray:
     never excludes the entire alive fleet."""
     m = cluster.m
     mask = np.zeros(m + 1, bool)
+    if getattr(cluster, "is_vec", False):
+        if cluster.central:
+            mask[:m] = ~cluster.pool.failed[cluster.lane_ids]
+            _apply_health_mask(cluster, mask, m)
+        mask[m] = True
+        return mask
     for i, inst in enumerate(cluster.instances):
         mask[i] = not inst.failed
     _apply_health_mask(cluster, mask, m)

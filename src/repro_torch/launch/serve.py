@@ -19,6 +19,13 @@ calibrated simulator or real LLM engines (twin of
   PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
       --trace trace.json --metrics-out metrics.json
 
+  # the same gateway over the vectorized simulator, and ONLINE
+  # continual learning: the gateway trains its own router on the live
+  # stream with the r_mixing safe-fallback guardrail (--drift serves the
+  # mix-flip scenario; --checkpoint warm-starts the learner)
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
+      --backend vec --online --guardrail 0.12 --drift
+
   # the gateway over reduced real engines, any gateway policy
   # (rr|jsq|mixing|mixing+cache|sticky|rl --checkpoint DIR), with chaos
   # and failover
@@ -30,10 +37,9 @@ calibrated simulator or real LLM engines (twin of
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
       --requests 12
 
-Online learning (``--online``), calibration (``--calibrate``) and the
-vectorized and device-resident simulators (``--backend vec|jax``) come
-with later slices of the port; asking for them exits with a message
-saying so.
+Calibration (``--calibrate``) and the device-resident simulator
+(``--backend jax``) come with later slices of the port; asking for them
+exits with a message saying so.
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from repro_torch.serving.policies import (RLPolicy, make_gateway_policy,
                                           restore_rl_policy)
 from repro_torch.serving.request import Request, summarize
 from repro_torch.serving.scheduler import get_scheduler
+from repro_torch.training.online import OnlineConfig, OnlineTrainer
 
 LATER = "comes with a later slice of the PyTorch port"
 
@@ -208,9 +215,10 @@ def gateway_requests(n: int) -> List[Request]:
 
 
 def _resolve_backend(args) -> str:
-    """Map the CLI flags onto one backend name.  ``--backend`` names it
-    directly ('sim' is the legacy alias for the ``py`` stepper);
-    ``--sim-backend`` is the deprecated spelling and wins when set."""
+    """Map the CLI flags onto one ``core.backends`` registry name.
+    ``--backend`` names it directly ('sim' is the legacy alias for the
+    ``py`` stepper); ``--sim-backend`` is the deprecated spelling and
+    wins when set."""
     backend = "py" if args.backend == "sim" else args.backend
     if args.sim_backend is not None:
         warnings.warn(
@@ -224,45 +232,52 @@ def _resolve_backend(args) -> str:
 #: flags only the simulator-backed gateway reads (dest names)
 SIM_ONLY = ("pattern", "sessions", "drift", "train_episodes",
             "sim_backend")
+#: flags only ``--online`` reads (dest names)
+ONLINE_ONLY = ("guardrail", "online_eps", "save_learner")
+
+
+def _given(args, dests) -> List[str]:
+    """The flags among ``dests`` set to other than their defaults."""
+    defaults = build_parser()
+    return ["--" + d.replace("_", "-") for d in dests
+            if getattr(args, d) != defaults.get_default(d)]
 
 
 def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
                   policy=None, reqs: Optional[List[Request]] = None
                   ) -> dict:
-    """The online gateway over the ``py`` simulator (the learned length
-    predictor in the loop) or over real engines (``--backend engine``):
+    """The online gateway over the ``py`` or ``vec`` simulator (the
+    learned length predictor in the loop; ``--online`` trains the router
+    on the live stream) or over real engines (``--backend engine``):
     admission, shedding/deferral, the routing policy, chaos and failover.
     Over engines, callers may hand in their own engines, policy and
     request stream; by default the reduced ``--arch`` engines serve the
     reference's stream under ``--policy``.  Prints the reference's
     summary lines, writes ``--trace`` / ``--metrics-out``, and returns
     the gateway's stats (with the predictor's counters under
-    ``"predictor"`` over the simulator)."""
+    ``"predictor"`` over the simulator, and the online learner's
+    telemetry under ``"online"``)."""
     backend = _resolve_backend(args)
-    if backend in ("vec", "jax"):
-        sys.exit(f"--backend {backend}: the vectorized and "
-                 f"device-resident simulators {LATER}; the port serves "
-                 "--backend py and --backend engine")
-    if args.online:
-        if backend == "engine":
-            raise SystemExit("--online needs a simulator backend "
-                             "(py/vec): the engine adapter fires no "
-                             "decode events for the backlog reward)")
-        sys.exit(f"--online: continual learning in the gateway {LATER}")
+    if backend == "jax":
+        sys.exit(f"--backend jax: the device-resident simulator {LATER} "
+                 "(ROADMAP §2 item 5); the port serves --backend py, vec "
+                 "and engine")
+    if args.online and backend == "engine":
+        raise SystemExit("--online needs a simulator backend "
+                         "(py/vec): the engine adapter fires no "
+                         "decode events for the backlog reward)")
     if backend == "engine":
-        defaults = build_parser()
-        given = ["--" + d.replace("_", "-") for d in SIM_ONLY
-                 if getattr(args, d) != defaults.get_default(d)]
+        given = _given(args, SIM_ONLY)
         if given:
             sys.exit(f"{', '.join(given)}: read only over the simulator "
-                     "(--backend py), not over --backend engine")
+                     "(--backend py|vec), not over --backend engine")
     dev = resolve_device(args.device)
     cfg = _router_cfg(args)
     chaos = _chaos_schedule(args)
     gcfg = GatewayConfig(queue_cap=args.queue_cap, on_full=args.on_full,
                          scheduler=args.scheduler,
                          chunked_prefill=args.chunked_prefill,
-                         backend="py",
+                         backend=backend,
                          default_deadline_s=args.deadline,
                          prefix_cache_tokens=args.prefix_cache,
                          prefix_block=args.prefix_block,
@@ -273,6 +288,7 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
     recorder = (trace_lib.TraceRecorder(sample=args.trace_sample)
                 if args.trace else None)
     length = None
+    trainer = None
     if backend == "engine":
         if engines is None:
             engines = _tiny_engines(args)
@@ -319,7 +335,18 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
                                           sessions=sessions)
         length = MicroBatchPredictor(quick_bucket_predictor(
             base, n_train=2000, epochs=2, device=dev))
-        if args.policy == "rl":
+        if args.online:
+            ocfg = OnlineConfig(eps=args.online_eps,
+                                guard=args.guardrail > 0,
+                                guard_regret=args.guardrail,
+                                warm_start=args.checkpoint,
+                                checkpoint_dir=args.save_learner,
+                                checkpoint_every=(500 if args.save_learner
+                                                  else 0))
+            trainer = OnlineTrainer(cfg, ocfg, m=args.instances,
+                                    device=dev)
+            policy = trainer.policy
+        elif args.policy == "rl":
             if args.checkpoint:
                 policy = restore_rl_policy(cfg, args.checkpoint,
                                            m=args.instances, device=dev)
@@ -330,14 +357,18 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
             policy = make_gateway_policy(args.policy, cfg)
         gw = Gateway(gcfg, profiles, policy, length=length,
                      trace=recorder)
-        if chaos is not None and chaos.bursts:
-            reqs = inject_bursts(scn.requests, chaos,
-                                 seed=args.chaos_seed)
-            samples = list(scn.samples) + [None] * (
-                len(reqs) - len(scn.requests))
-            stats = gw.run(reqs, samples=samples)
-        else:
-            stats = gw.run(scn)
+        try:
+            if chaos is not None and chaos.bursts:
+                reqs = inject_bursts(scn.requests, chaos,
+                                     seed=args.chaos_seed)
+                samples = list(scn.samples) + [None] * (
+                    len(reqs) - len(scn.requests))
+                stats = gw.run(reqs, samples=samples)
+            else:
+                stats = gw.run(scn)
+        finally:
+            if trainer is not None:
+                trainer.close()     # the checkpoint writer, if any
     print(f"policy={stats['policy']} served n={stats['n']} "
           f"admitted={stats['admitted']} shed={stats['shed']} "
           f"preemptions={stats['preemptions']}")
@@ -350,6 +381,16 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
                               "forwards": length.forwards}
         print(f"predictor: hits={length.hits} misses={length.misses} "
               f"forwards={length.forwards}")
+    if trainer is not None:
+        t = trainer.telemetry()
+        stats["online"] = t
+        print(f"online: decisions={int(t['decisions'])} "
+              f"transitions={int(t['transitions'])} "
+              f"learner_steps={trainer.agent.steps} "
+              f"publishes={int(t['publishes'])} "
+              f"explored={int(t['explored'])} "
+              f"fallback_entries={int(t['fallback_entries'])} "
+              f"mode={t['mode']}")
     print(format_snapshot(stats["snapshot"]))
     if args.trace:
         doc = obs.write_trace(recorder, args.trace,
@@ -370,10 +411,8 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
 
 def build_parser() -> argparse.ArgumentParser:
     """The reference's flags that the ported modes read, plus
-    ``--device``.  The flags only online learning or calibration read
-    (``--guardrail``, ``--online-eps``, ``--save-learner``,
-    ``--min-r2``) come with the slices that port those modes, so
-    argparse rejects them here."""
+    ``--device``.  ``--min-r2``, read only by calibration, comes with
+    the slice that ports it, so argparse rejects it here."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("sim", "engine", "gateway"),
                     default="sim")
@@ -384,10 +423,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend",
                     choices=("sim", "py", "vec", "jax", "engine"),
                     default="sim",
-                    help="gateway cluster backend: 'py' (or its legacy "
-                    "alias 'sim') is the simulator stepper, 'engine' "
-                    "runs reduced real engines; 'vec' and 'jax' come "
-                    "with a later slice")
+                    help="gateway cluster backend: any name from the "
+                    "core.backends registry ('py' (or its legacy alias "
+                    "'sim') and 'vec' pick the simulator stepper, "
+                    "'engine' runs reduced real engines; 'jax' comes "
+                    "with a later slice)")
     ap.add_argument("--policy", default="mixing",
                     choices=("rl", "mixing", "mixing+cache", "jsq",
                              "rr", "sticky"),
@@ -416,10 +456,28 @@ def build_parser() -> argparse.ArgumentParser:
                     "share system prompts) instead of independent "
                     "queries")
     ap.add_argument("--checkpoint", default=None,
-                    help="router checkpoint dir for --policy rl")
+                    help="router checkpoint dir for --policy rl (and "
+                    "the warm-start source for --online)")
     ap.add_argument("--online", action="store_true",
                     help="gateway: continual learning on the live "
-                    "stream (a later slice)")
+                    "stream (training.online) -- the router trains on "
+                    "its own transitions between arrival windows and "
+                    "hot-swaps refreshed weights without pausing "
+                    "admission; implies the RL policy with health "
+                    "features")
+    ap.add_argument("--guardrail", type=float, default=0.12,
+                    metavar="REGRET",
+                    help="--online safe fallback: when the Q-head's "
+                    "mean r_mixing regret over the guard window "
+                    "exceeds this, route by r_mixing for a cooldown "
+                    "while learning continues (0 = guardrail off)")
+    ap.add_argument("--online-eps", type=float, default=0.05,
+                    help="--online guided exploration rate (softmax "
+                    "over the r_mixing guidance bonus)")
+    ap.add_argument("--save-learner", default=None, metavar="DIR",
+                    help="--online: periodically checkpoint the FULL "
+                    "learner state (Q + target + optimizer + replay) "
+                    "here for exact mid-stream resume")
     ap.add_argument("--drift", action="store_true",
                     help="gateway: serve the nonstationary drift "
                     "scenario (mid-stream workload-mix flip + tenant "
@@ -477,6 +535,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.calibrate:
         sys.exit(f"--calibrate {LATER}")
+    given = [] if args.online else _given(args, ONLINE_ONLY)
+    if given:
+        sys.exit(f"{', '.join(given)}: read only with --online")
     if args.mode == "sim":
         serve_sim(args)
     elif args.mode == "gateway":

@@ -33,8 +33,7 @@ this subsystem.
 The gateway fronts either the discrete-event simulator ``Cluster`` or
 real ``serving.engine.LLMInstance`` replicas (``EngineClusterAdapter``).
 
-This is the port's copy of ``repro.serving.gateway``.  The
-simulator-backed cluster runs the ``py`` stepper only.
+This is the port's copy of ``repro.serving.gateway``.
 """
 from __future__ import annotations
 
@@ -301,7 +300,7 @@ class GatewayConfig:
     quantiles: Tuple[float, ...] = (0.5, 0.95, 0.99)
     slo: SLO = field(default_factory=SLO)
     # simulator backend for the built-in cluster: "py" (SimInstance
-    # reference stepper; the only one ported so far)
+    # reference stepper) or "vec" (core.vecsim structure-of-arrays)
     backend: str = "py"
     # per-instance prefix/KV cache model (core.prefix_cache); 0 = off
     prefix_cache_tokens: int = 0
@@ -696,10 +695,13 @@ class Gateway:
             return
         cluster = self.cluster
         now = cluster.t
+        is_vec = getattr(cluster, "is_vec", False)
         for rid, (req, t0) in list(self._inflight.items()):
             if now - t0 <= cfg.hedge_after_s \
                     or req.hedges >= cfg.max_hedges:
                 continue
+            if is_vec:
+                cluster.pool.sync_request(cluster.gid_of(req))
             if req.first_token is not None or req.phase is Phase.DONE:
                 del self._inflight[rid]     # progressing; leave it be
                 continue
@@ -869,6 +871,10 @@ class Gateway:
                 break
         if on_run_end is not None:
             on_run_end()
+        if getattr(cluster, "is_vec", False):
+            cluster.sync_all()   # in-flight requests on truncated runs
+            for r in self.shed:
+                r.phase = Phase.SHED   # fair-evicted: arena says QUEUED
         stats = summarize(requests)
         stats["preemptions"] = sum(r.preemptions for r in requests)
         stats["shed"] = len(self.shed)

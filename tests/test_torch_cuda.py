@@ -490,3 +490,92 @@ def test_cuda_agent_checkpoint_round_trip(cuda_device, tmp_path):
                 assert np.array_equal(val, _flatten(card.state_dict())[key])
     finally:
         mgr.close()
+
+
+@pytest.mark.cuda
+def test_cuda_batched_training_on_vec_matches_cpu(cuda_device):
+    """Two batched episodes on the ``vec`` simulator with the agent on
+    the card (4 instances, 8 environments' width of the reference bench,
+    a 256-row learn batch): at every round's act the card's Q-values
+    match the same network on the CPU within 1e-5 of their scale, and
+    the CPU picks the same actions wherever the selection margin is
+    above 1e-4."""
+    import numpy as np
+
+    from repro_torch.core import batched_rl, dqn, rl_router as rl
+    from repro_torch.core import workload as wl
+    from repro_torch.core.profiles import V100_LLAMA2_7B
+    cfg = rl.RouterConfig(variant="guided", n_instances=4,
+                          explore_episodes=1, q_arch="decomposed", seed=0)
+    card = rl.make_agent(cfg, device=cuda_device)
+    cpu = dqn.DQNAgent(card.cfg, device="cpu")
+    checked = []
+    act_batch = card.act_batch
+
+    def checked_act(states, masks, epsilon=None, prior=None, q_squash=0.0):
+        acts = act_batch(states, masks, epsilon=epsilon, prior=prior,
+                         q_squash=q_squash)
+        cpu.params.load_reference(card.params.reference_tree())
+        q_card = dqn.q_values(card.params, states)
+        q_cpu = dqn.q_values(cpu.params, states)
+        scale = max(float(np.abs(q_cpu).max()), 1.0)
+        assert float(np.abs(q_card - q_cpu).max()) <= 1e-5 * scale
+        q = q_cpu.astype(np.float64)
+        if q_squash > 0:
+            ref = np.max(np.where(masks, q, -np.inf), axis=1)
+            q = q_squash * np.tanh(q - np.where(np.isfinite(ref), ref,
+                                                0.0)[:, None])
+        if prior is not None:
+            q = q + prior
+        q[~masks] = -np.inf
+        top2 = np.sort(q, axis=1)[:, -2:]
+        with np.errstate(invalid="ignore"):     # all-masked padding rows
+            sure = masks.any(1) & ((top2[:, 1] - top2[:, 0]) > 1e-4)
+        assert np.array_equal(np.argmax(q, 1)[sure], acts[sure])
+        checked.append(int(sure.sum()))
+        return acts
+    card.act_batch = checked_act
+
+    def scenario(ep):
+        return wl.Scenario.homogeneous(
+            V100_LLAMA2_7B, 4, wl.to_requests(wl.generate(200, seed=ep),
+                                              rate=20.0, seed=ep + 5000))
+    out = batched_rl.train_batched(
+        cfg, scenario, 2, bcfg=batched_rl.BatchedRLConfig(
+            n_envs=2, m_max=4, backend="vec"), agent=card)
+    assert [h["n"] for h in out["history"]] == [200, 200]
+    assert card.steps > 0 and sum(checked) > 100
+
+
+@pytest.mark.cuda
+def test_cuda_online_publish_is_a_snapshot(cuda_device):
+    """On the card too, learn steps after a publish leave the served
+    network unchanged; the next publish makes it equal the learner's."""
+    import numpy as np
+
+    from repro_torch.core import rl_router as rl
+    from repro_torch.training.online import OnlineConfig, OnlineTrainer
+    cfg = rl.RouterConfig(variant="guided", n_instances=4,
+                          q_arch="decomposed", seed=0,
+                          include_health_features=True)
+    tr = OnlineTrainer(cfg, OnlineConfig(), device=cuda_device)
+    agent = tr.agent
+    assert tr.serve_agent.device == agent.device
+    rng = np.random.default_rng(0)
+    d, n_a = agent.cfg.state_dim, agent.cfg.n_actions
+    for _ in range(agent.cfg.batch_size + 10):
+        agent.observe(rng.standard_normal(d), int(rng.integers(0, n_a)),
+                      float(rng.normal()), rng.standard_normal(d), 1.0,
+                      np.ones(n_a, bool))
+    served = tr.policy.agent
+    before = [p.detach().clone() for p in served.params.parameters()]
+    for _ in range(3):
+        agent.learn(sync=False)
+    torch.cuda.synchronize()
+    for a, b in zip(before, served.params.parameters()):
+        assert torch.equal(a, b) and b.device.type == "cuda"
+    assert any(not torch.equal(a, b) for a, b in
+               zip(before, agent.params.parameters()))
+    tr._publish()
+    for a, b in zip(served.params.parameters(), agent.params.parameters()):
+        assert torch.equal(a, b)

@@ -9,6 +9,7 @@ import os
 import jax
 import numpy as np
 import pytest
+from _torch_rl_support import assert_same
 
 from repro.core import predictor as ref_pred
 from repro.core import rl_router as ref_rl
@@ -31,24 +32,6 @@ from repro_torch.serving import trace as pt_trace
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "golden_trace.json")
 SMALL = dict(seq_len=32, d_model=16, n_heads=2, n_layers=1)
-
-
-def _assert_same(got, want, path="stats", rel=1e-9, abs_=1e-12):
-    """Nested stats equal: keys and ints exactly, floats to ``rel``
-    relative or ``abs_`` absolute."""
-    if isinstance(want, dict):
-        assert isinstance(got, dict) and set(got) == set(want), path
-        for k in want:
-            _assert_same(got[k], want[k], f"{path}/{k}", rel, abs_)
-    elif isinstance(want, (list, tuple)):
-        assert len(got) == len(want), path
-        for i, (a, b) in enumerate(zip(got, want)):
-            _assert_same(a, b, f"{path}[{i}]", rel, abs_)
-    elif isinstance(want, float) and not isinstance(got, bool):
-        assert got == pytest.approx(want, rel=rel, abs=abs_,
-                                    nan_ok=True), path
-    else:
-        assert got == want, path
 
 
 def _predictors():
@@ -112,7 +95,7 @@ def test_gateway_with_predictor_matches_reference(policy, gcfg):
     pt_wl.to_requests(pt_wl.generate(7, seed=0), rate=1.0)
     got = _gateway_run(pt_gw, pt_wl, pt_trace, pt_obs, PT_V100, pred_p,
                        pol_p, **gcfg)
-    _assert_same(got[0], want[0])
+    assert_same(got[0], want[0])
     assert got[1] == want[1]
     assert got[2] == want[2] and got[2][1] > 0
     if gcfg:
@@ -121,7 +104,7 @@ def test_gateway_with_predictor_matches_reference(policy, gcfg):
     # route events carry its float32 Q-values, |Q| < 1 here, held to
     # 1e-6 of their scale as in test_torch_router.py), and the
     # registries to the same Prometheus text
-    _assert_same(got[3], want[3], "trace",
+    assert_same(got[3], want[3], "trace",
                  abs_=1e-6 if policy == "rl" else 1e-12)
     regs = []
     for obs, (stats, *_), agent in ((ref_obs, want, getattr(pol_r, "agent",

@@ -91,10 +91,9 @@ def test_entry_points_default_to_the_card():
 
 def test_serve_cli_refuses_unported_modes():
     from repro_torch.launch import serve
-    for argv in (["--mode", "gateway", "--backend", "vec"],
-                 ["--mode", "gateway", "--backend", "jax"],
-                 ["--mode", "gateway", "--sim-backend", "vec"],
-                 ["--mode", "gateway", "--online"],
+    for argv in (["--mode", "gateway", "--backend", "jax"],
+                 ["--mode", "gateway", "--backend", "jax", "--online"],
+                 ["--mode", "gateway", "--sim-backend", "jax"],
                  ["--calibrate"]):
         with pytest.raises(SystemExit, match="later slice"):
             serve.main(argv + ["--device", "cpu"])
@@ -119,9 +118,14 @@ def test_serve_cli_rejects_simulator_only_flags(flag):
     ["--guardrail", "0.1"], ["--online-eps", "0.1"],
     ["--save-learner", "d"], ["--min-r2", "0.5"]])
 def test_serve_cli_rejects_online_and_calibration_flags(flag, capsys):
-    """Flags that only online learning or calibration read (later
-    slices) are not accepted at all."""
+    """Flags that only online learning reads are refused without
+    ``--online``, so none is silently ignored; the flag only calibration
+    reads (a later slice) is not accepted at all."""
     from repro_torch.launch import serve
+    if flag[0] != "--min-r2":
+        with pytest.raises(SystemExit, match="only with --online"):
+            serve.main(["--mode", "gateway", "--device", "cpu"] + flag)
+        return
     with pytest.raises(SystemExit) as exc:
         serve.build_parser().parse_args(["--mode", "gateway"] + flag)
     assert exc.value.code == 2

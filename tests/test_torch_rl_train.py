@@ -186,13 +186,31 @@ def test_managed_cluster_saves_and_restores_the_router(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [{"backend": "vec"}, {"backend": "jax"},
-                                {"sim_backend": "py"}, {"pool": object()}])
+                                {"sim_backend": "jax"}, {"pool": "vec"}])
 def test_routing_env_refuses_unported_backends(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pt_rl.RoutingEnv(pt_rl.RouterConfig(n_instances=2), PT_V100, **kw)
-    env = pt_rl.RoutingEnv(pt_rl.RouterConfig(n_instances=2), PT_V100,
-                           backend="py")
-    assert env.sim_backend == "py" and env.m == 2
+    """Only the device-resident backend is still refused (when ``reset``
+    builds the cluster, as the reference builds it there); ``vec``, the
+    deprecated ``sim_backend`` spelling and a shared pool step."""
+    import warnings
+    from repro_torch.core.vecsim import VecCluster, VecSimPool
+    if kw.get("pool") == "vec":
+        kw = {"pool": VecSimPool(2), "pool_ep": 1}
+    cfg = pt_rl.RouterConfig(n_instances=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        env = pt_rl.RoutingEnv(cfg, PT_V100, **kw)
+    reqs = _stream(pt_wl, n=6)(0)
+    if "jax" in kw.values():
+        with pytest.raises(NotImplementedError, match="later slice"):
+            env.reset(reqs)
+        return
+    env.reset(reqs)
+    assert isinstance(env.cluster, VecCluster) and env.sim_backend == "vec"
+    assert env.m == 2 and env.cluster.ep == kw.get("pool_ep", 0)
+    done = False
+    while not done:
+        _, _, done, _ = env.step(0)
+    assert len(env.cluster.completed) == 6
 
 
 def test_router_config_has_every_reference_field():

@@ -341,8 +341,12 @@ def test_simulator_and_legacy_policies_match_reference(name):
 
 
 def test_simulator_refuses_unported_backends():
+    """Only the device-resident backend is still refused; ``vec``
+    resolves through the registry."""
     with pytest.raises(NotImplementedError, match="later slice"):
-        pt_sim.Cluster(PT_V100, 2, backend="vec")
+        pt_sim.Cluster(PT_V100, 2, backend="jax")
+    assert type(pt_sim.Cluster(PT_V100, 2, backend="vec")).__name__ == \
+        "VecCluster"
 
 
 def _gateway_sim(gw, pol, rl, wl, prof, chaos, policy, **cfg_kw):
