@@ -92,7 +92,25 @@ Phases, in order; any failure raises and the process exits non-zero:
      bf16, seeded random weights) on two engines x 8 slots, one seeded
      stream of 16 requests served through ``serve_gateway`` under the RL
      policy (phase 5b's restored router), with the launch counts read
-     around that run, and one decode step and one prefill profiled.
+     around that run, and one decode step and one prefill profiled;
+  8. the simulator<->engine loop (the paper's Fig. 4; what
+     benchmarks/bench_fidelity.py runs on a reduced model, here at full
+     width with phases 5 and 6's weights), each part's launch counts
+     read around it: (a) ``core.calibrate.calibrate`` sweeps llama-2-7b's
+     engine functions (int8 KV; prompts 128-1536, decode up to 8 slots
+     x 2048, 8 chained steps a call, min of 9 interleaved repeats, host
+     clock with the card synchronised) and fits its H100 profile,
+     printed with its sanity ordering beside V100's and beside phase 6's
+     served walls, saved under ``build/calibration/`` and read back; (b)
+     the same for qwen3-0.6b (bf16 cache; prompts 128-896, decode up to
+     8 x 1024), beside phase 5's walls; (c)
+     ``serving.fidelity.run_fidelity`` replays one 12-request stream
+     through the py and vec simulators and two llama-2-7b engines (8
+     slots x 2048) under mixing, on the V100 profile and on (a)'s: vec
+     equals py and the engine's P95 E2E is within bench_fidelity's band
+     (0.35) of py's on both; (d) the
+     saturating stream on one qwen3-0.6b engine x 2 slots: both the
+     simulator and the engine preempt, and every request completes.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -614,9 +632,11 @@ def serve(torch, np, m):
     return launches, dict(wall_s=wall, output_tokens=out_tok,
                           admissions=admissions, decode_iterations=iters,
                           prefill_median_ms=pre_ms,
+                          prompt_mean=statistics.mean(
+                              r.prompt_tokens for r in reqs),
                           decode_step_median_ms=dec_ms,
                           in_model_s=in_model, stats=stats,
-                          decode_profile=device)
+                          decode_profile=device), (cfg, params)
 
 
 def timed_engines(torch, m, cfg, params, prof, cache_len, step_s, finite,
@@ -1465,7 +1485,9 @@ def gateway_runs(torch, np, m, cfg, params, cache_len, policies, stream,
 
 def gateway_phase(torch, np, m, ckpt_dir):
     """Phase 6: llama-2-7b with int8 KV caches (8 slots x 2048 tokens),
-    24 requests (outputs 16-128) under rl and mixing."""
+    24 requests (outputs 16-128) under rl and mixing.  Returns the
+    launch counts, the results and (cfg, params), which phase 8
+    reuses."""
     cfg = dataclasses.replace(m.get_config("llama-2-7b"),
                               kv_cache_dtype="int8")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -1482,11 +1504,12 @@ def gateway_phase(torch, np, m, ckpt_dir):
             > 0, (launches, iters)
         assert launches["decode_attention"] == launches["mamba_scan"] \
             == 0, launches
-    return gateway_runs(
+    launches, out = gateway_runs(
         torch, np, m, cfg, params, 2048, ("rl", "mixing"),
         lambda: gateway_stream(np, m.Request, 24, 128, 6, 20_000), expect,
         ckpt_dir, (("decode_attention_int8", "dec_split"),
          ("flash_attention", "fa_fwd_tc")))
+    return launches, out, (cfg, params)
 
 
 FALCON_MAMBA_PARAMS = 7_272_665_088
@@ -1541,6 +1564,210 @@ def check_q_on_cpu(torch, np, m, agent, recorded):
                 same_action=same)
 
 
+# -- phase 8: the simulator<->engine loop -------------------------------------
+
+# the card's calibration grids (core.calibrate.CalibrationConfig fields):
+# llama-2-7b's prompts across phase 6's range (100-1500) and its decode
+# points up to the engines' 8 slots x 2048; qwen3-0.6b's scaled to its
+# 1024-token caches
+CAL_LLAMA = dict(prompt_grid=(128, 256, 512, 768, 1024, 1536),
+                 decode_grid=((1, 256), (2, 512), (4, 512), (4, 1024),
+                              (8, 1024), (8, 2048)),
+                 prefill_cache_len=2048, decode_steps_per_call=8,
+                 repeats=9, warmup=2)
+CAL_QWEN = dict(prompt_grid=(128, 256, 384, 512, 768, 896),
+                decode_grid=((1, 128), (2, 256), (4, 256), (4, 512),
+                             (8, 512), (8, 1024)),
+                prefill_cache_len=1024, decode_steps_per_call=8,
+                repeats=9, warmup=2)
+CAL_DIR = os.path.join(ROOT, "build", "calibration")
+# benchmarks/bench_fidelity.py's BAND: |engine vs py| P95 E2E, relative
+FIDELITY_BAND = 0.35
+# 8c: bench_fidelity's engine-vs-simulator leg at llama-2-7b's serving
+# shape (2 engines x 8 slots x 2048, the V100 profile's 4000 tokens).  The
+# stream is cut from 24 requests to 12: at 24 the two legs took 975 and
+# 892 decode steps, 141 s of the phase's 207 s on an H100
+FID_LLAMA = dict(backends=("py", "vec", "engine"), n_requests=12,
+                 n_instances=2, n_slots=8, cache_len=2048,
+                 capacity_tokens=4000, prompt_lengths=(128, 256, 512, 1024),
+                 decode_range=(16, 128), rate=1.0, policy="mixing")
+# 8d: the saturating stream on one qwen3-0.6b engine x 2 slots: two
+# bursts of 4 ladder-top (512-token) prompts whose decodes (40-48) push
+# two residents past 1100 tokens, so every backend preempts
+FID_SATURATE = dict(backends=("py", "vec", "engine"), n_requests=8,
+                    n_instances=1, n_slots=2, cache_len=1024,
+                    capacity_tokens=1100, prompt_lengths=(256, 512),
+                    decode_range=(16, 48), rate=2.0, saturate=True)
+
+
+def _expect_attention(cfg, launches, prefills, steps):
+    """The attention paths' counts: flash once a layer a prefill, the
+    cache's decode mode once a layer a decode step, nothing else."""
+    dec = ("decode_attention_int8" if cfg.kv_cache_dtype == "int8"
+           else "decode_attention")
+    assert launches["flash_attention"] == cfg.n_layers * prefills > 0, (
+        launches, prefills)
+    assert launches[dec] == cfg.n_layers * steps > 0, (launches, steps)
+    others = set(launches) - {"flash_attention", dec}
+    assert all(launches[k] == 0 for k in others), launches
+
+
+def calibrate_on_card(torch, m, cfg, params, grid, name, measured):
+    """Sweep and fit ``cfg``'s profile from its engine functions on the
+    card (``core.calibrate.calibrate``), the launch counts read around
+    the sweep; print the fit beside V100's constants and beside the
+    walls an earlier phase measured in serving (``measured``: decode
+    step ms, prefill ms and its prompt tokens); save the artifact under
+    ``build/calibration/`` and read it back with ``load_profile``."""
+    ccfg = m.cal.CalibrationConfig(**grid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(m)
+    t0 = time.perf_counter()
+    res = m.cal.calibrate(cfg, params, ccfg, name=f"h100-{name}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(m)
+    calls = ccfg.warmup + ccfg.repeats
+    _expect_attention(cfg, launches, len(ccfg.prompt_grid) * calls,
+                      len(ccfg.decode_grid) * calls
+                      * ccfg.decode_steps_per_call)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for line in m.cal.format_result(res).splitlines():
+        log("  " + line)
+    p, v = res.profile, m.profiles.V100_LLAMA2_7B
+    for key in ("grad1", "grad2", "t_decode_base", "t_prefill_base"):
+        log(f"    {key:14s} {getattr(p, key):.4e} (V100 "
+            f"{getattr(v, key):.4e})")
+    log("  prefill samples (tokens, ms): " + ", ".join(
+        f"({x:.0f}, {t * 1e3:.3f})" for x, t in res.prefill_samples))
+    log("  decode samples (B*c, ms/step): " + ", ".join(
+        f"({x:.0f}, {t * 1e3:.3f})" for x, t in res.decode_samples))
+    r_top = max(x for x, _ in res.decode_samples)
+    it_ms = p.iteration_time(0, int(r_top)) * 1e3
+    pre_ms = p.prefill_time(measured["prompt_tokens"]) * 1e3
+    log(f"  served walls ({measured['what']}) against the fit: decode step "
+        f"{measured['decode_ms']:.2f} ms vs iteration_time(0, "
+        f"{r_top:.0f}) {it_ms:.2f} ms; prefill of "
+        f"{measured['prompt_tokens']} tokens {measured['prefill_ms']:.2f} "
+        f"ms vs prefill_time {pre_ms:.2f} ms")
+    # printed, not asserted: while the host's dispatch time hides the
+    # device's per-token cost, both slopes are host noise and the
+    # ordering grad1 > grad2 is decided by it (PERF.md §6, PR 21)
+    log(f"  sanity (grad1 > grad2 > 0): {res.ok}; R^2 prefill "
+        f"{res.prefill_fit.r2:.4f}, decode {res.decode_fit.r2:.4f}")
+    assert all(t > 0 for _, t in res.prefill_samples + res.decode_samples)
+    assert [x for x, _ in res.prefill_samples] == list(ccfg.prompt_grid)
+    assert [x for x, _ in res.decode_samples] == [
+        b * c for b, c in ccfg.decode_grid]
+    os.makedirs(CAL_DIR, exist_ok=True)
+    path = os.path.join(CAL_DIR, f"{name}.json")
+    res.save(path)
+    assert m.cal.load_profile(path) == res.profile
+    log(f"  wrote {os.path.relpath(path, ROOT)}; sweep {wall:.1f} s, "
+        f"peak {peak:.2f} GB allocated; launches {launches}")
+    return launches, res, dict(
+        wall_s=wall, peak_gb=peak, ok=res.ok,
+        artifact=os.path.relpath(path, ROOT),
+        result=res.to_json(), iteration_time_ms_at_top=it_ms,
+        prefill_time_ms_at_served=pre_ms, measured=measured)
+
+
+def fidelity_on_card(torch, m, cfg, params, fcfg, profile, what):
+    """``serving.fidelity.run_fidelity`` with the engine leg on the
+    card, the launch counts read around it and held to the engines' own
+    prefill and decode-step counts; vec must equal py and the engine
+    must serve the whole stream."""
+    made = []
+
+    class CountedInstance(m.LLMInstance):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m.fid.LLMInstance = CountedInstance
+    try:
+        reset_launches(m)
+        t0 = time.perf_counter()
+        rep = m.fid.run_fidelity(profile, fcfg, model_cfg=cfg,
+                                 params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(m)
+    finally:
+        m.fid.LLMInstance = m.LLMInstance
+    prefills = sum(e.n_prefills for e in made)
+    steps = sum(e.n_decode_steps for e in made)
+    _expect_attention(cfg, launches, prefills, steps)
+    backends = rep["backends"]
+    assert backends["vec"] == backends["py"], "vec diverged from py"
+    for name, b in backends.items():
+        assert b["completed"] == fcfg.n_requests, (name, b["completed"])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    d = rep["deltas"]["engine_vs_py"]
+    for line in m.fid.format_report(rep).splitlines():
+        log("    " + line)
+    log(f"  [{what}] engine leg: {prefills} prefills, {steps} decode "
+        f"steps; {wall:.1f} s wall for all backends, peak {peak:.2f} GB "
+        f"allocated; launches {launches}")
+    del made             # the engines and their caches, before the release
+    torch.cuda.empty_cache()
+    return launches, rep, dict(
+        wall_s=wall, peak_gb=peak, prefills=prefills, decode_steps=steps,
+        e2e_p95_rel=d["e2e"]["p95"]["rel"],
+        ttft_p95_rel=d["ttft"]["p95"]["rel"],
+        preemptions=d["preemptions"], report=rep)
+
+
+def loop_phase(torch, m, qwen, llama, served, gateway):
+    """Phase 8: (a) calibrate llama-2-7b (int8 KV) and (b) qwen3-0.6b
+    from their full-width engines on the card, (c) replay one stream
+    through py, vec and llama-2-7b engines on the V100 profile and on
+    (a)'s, (d) the saturating stream on a qwen3-0.6b engine.  ``qwen``
+    and ``llama`` are (cfg, params) of phases 5 and 6."""
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    rl = gateway["rl"]
+    llama_measured = dict(
+        what="phase 6, rl", decode_ms=rl["decode_step_median_ms"],
+        prefill_ms=rl["prefill_profile"]["wall_ms"],
+        prompt_tokens=rl["prefill_profile"]["prompt_tokens"])
+    log("  (8a) llama-2-7b, int8 KV cache")
+    launches["calibrate_llama"], llama_res, out["calibrate_llama"] = \
+        calibrate_on_card(torch, m, *llama, CAL_LLAMA, "llama-2-7b-int8",
+                          llama_measured)
+    torch.cuda.empty_cache()
+    qwen_measured = dict(
+        what="phase 5", decode_ms=served["decode_step_median_ms"],
+        prefill_ms=served["prefill_median_ms"],
+        prompt_tokens=served["prompt_mean"])
+    log("  (8b) qwen3-0.6b, bf16 cache")
+    launches["calibrate_qwen3"], _, out["calibrate_qwen3"] = \
+        calibrate_on_card(torch, m, *qwen, CAL_QWEN, "qwen3-0.6b",
+                          qwen_measured)
+    torch.cuda.empty_cache()
+    fcfg = m.fid.FidelityConfig(**FID_LLAMA)
+    for tag, prof in (("v100", m.profiles.V100_LLAMA2_7B),
+                      ("calibrated", llama_res.profile)):
+        log(f"  (8c) fidelity of llama-2-7b on the {prof.name} profile")
+        key = f"fidelity_llama_{tag}"
+        launches[key], _, out[key] = fidelity_on_card(
+            torch, m, *llama, fcfg, prof, key)
+        rel = out[key]["e2e_p95_rel"]
+        assert rel is not None and abs(rel) <= FIDELITY_BAND, (tag, rel)
+    log("  (8d) the saturating stream on qwen3-0.6b, V100 profile")
+    launches["fidelity_qwen3_saturate"], _, sat = fidelity_on_card(
+        torch, m, *qwen, m.fid.FidelityConfig(**FID_SATURATE),
+        m.profiles.V100_LLAMA2_7B, "fidelity_qwen3_saturate")
+    assert sat["preemptions"]["both_preempt"], sat["preemptions"]
+    out["fidelity_qwen3_saturate"] = sat
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  loop phase {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def write_json(path, obj):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -1567,6 +1794,7 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.core import batched_rl, dqn, profiles, rl_router as rl
+    from repro_torch.core import calibrate as cal
     from repro_torch.core import policies as legacy
     from repro_torch.core import simulator as sim
     from repro_torch.core import predictor as pred_lib
@@ -1579,6 +1807,7 @@ def main(argv=None) -> int:
     from repro_torch.models import model as model_lib
     from repro_torch.models import params as params_lib
     from repro_torch.models.attention import quantize_kv
+    from repro_torch.serving import fidelity as fid
     from repro_torch.serving import obs
     from repro_torch.serving.engine import LLMInstance
     from repro_torch.serving.gateway import (Gateway, GatewayConfig,
@@ -1601,7 +1830,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
-    log(f"[1/7] environment: {gpu}; torch {torch.__version__}, CUDA "
+    log(f"[1/8] environment: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = build.library_path()
@@ -1612,10 +1841,10 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    log("[2/7] kernels against their plain versions on the card")
+    log("[2/8] kernels against their plain versions on the card")
     errs = check_kernels(torch, fa, da, ms, quantize_kv)
 
-    log("[3/7] timing (CUDA events, median of "
+    log("[3/8] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
     kv_rng = np.random.default_rng(2)
     kv_lens = [int(x) for x in kv_rng.integers(100, 1025, 7)] + [1100]
@@ -1630,7 +1859,7 @@ def main(argv=None) -> int:
                                    "max_abs_err": errs, "times": times})
         return 0
 
-    log("[4/7] reduced models: card (kernels) against CPU (plain)")
+    log("[4/8] reduced models: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
 
     mods = argparse.Namespace(
@@ -1646,32 +1875,41 @@ def main(argv=None) -> int:
         OnlineConfig=OnlineConfig, OnlineTrainer=OnlineTrainer,
         save_learner=save_learner, restore_learner=restore_learner,
         Gateway=Gateway, GatewayConfig=GatewayConfig,
-        OracleLength=OracleLength, sim=sim, legacy=legacy)
-    log("[5/7] serve full-width qwen3-0.6b through serve_engine")
-    launches, served = serve(torch, np, mods)
+        OracleLength=OracleLength, sim=sim, legacy=legacy, cal=cal,
+        fid=fid)
+    log("[5/8] serve full-width qwen3-0.6b through serve_engine")
+    launches, served, qwen = serve(torch, np, mods)
     torch.cuda.empty_cache()
 
-    log("[5b/7] the router's learning path: predictor and DQN router "
+    log("[5b/8] the router's learning path: predictor and DQN router "
         "trained on the card, checkpointed, serving the simulator")
     router_launches, router, ckpt_dir = router_phase(torch, np, mods)
 
-    log("[5c/7] the router's scale-up on the card: batched training over "
+    log("[5c/8] the router's scale-up on the card: batched training over "
         "py and vec, the heterogeneous stream, online learning under "
         "drift")
     scale_launches, scale_up = scale_up_phase(torch, np, mods)
 
-    log("[6/7] the gateway over full-width llama-2-7b (int8 KV cache) "
+    log("[6/8] the gateway over full-width llama-2-7b (int8 KV cache) "
         "through serve_gateway, policies rl (restored) and mixing")
-    gw_launches, gateway = gateway_phase(torch, np, mods, ckpt_dir)
+    gw_launches, gateway, llama = gateway_phase(torch, np, mods, ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[7/7] the gateway over full-width falcon-mamba-7b through "
+    log("[7/8] the gateway over full-width falcon-mamba-7b through "
         "serve_gateway, policy rl (restored)")
     mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods,
                                                         ckpt_dir)
+    torch.cuda.empty_cache()
+
+    log("[8/8] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
+        "calibrated on the card, sim-vs-engine fidelity on both profiles, "
+        "the saturating stream")
+    loop_launches, loop = loop_phase(torch, mods, qwen, llama, served,
+                                     gateway)
     # each path's own counts (reset before it, read after it): phase 5's
     # serve_engine, phase 5b's router path, phase 5c's three parts, phase
-    # 6's gateway under each policy, phase 7's
+    # 6's gateway under each policy, phase 7's, phase 8's two sweeps and
+    # three fidelity runs
     by_path = {"serve_engine": launches,
                "router": router_launches,
                "batched": scale_launches["batched"],
@@ -1679,7 +1917,8 @@ def main(argv=None) -> int:
                "online": scale_launches["online"],
                "gateway_rl": gw_launches["rl"],
                "gateway_mixing": gw_launches["mixing"],
-               "gateway_mamba_rl": mamba_launches["rl"]}
+               "gateway_mamba_rl": mamba_launches["rl"],
+               **loop_launches}
     log(f"  launches per serving path: {by_path}")
 
     kernels = []
@@ -1720,7 +1959,8 @@ def main(argv=None) -> int:
                                "serve": served, "router": router,
                                "scale_up": scale_up,
                                "gateway": gateway,
-                               "gateway_mamba": mamba_gateway})
+                               "gateway_mamba": mamba_gateway,
+                               "loop": loop})
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

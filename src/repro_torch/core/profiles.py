@@ -7,18 +7,20 @@ and classifies requests heavy/light by phase-time thresholds (0.5s prompt,
 5s decode).  Both gradients are per (model, hardware) calibration constants;
 the paper ships Llama-2-7B/V100 numbers, and says to re-profile elsewhere.
 
-We keep the V100 profile as the reproduction default and derive a TPU v5e
-profile analytically from the roofline constants.  The engine-side
-calibration (``fit``) comes with the port of ``core.calibrate``; this copy
-reads a calibrated artifact with :func:`load_profile`.
+We keep the V100 profile as the reproduction default.  A profile of the
+card the port runs on is fitted from its own engines by
+``core.calibrate`` (sweep + fit, a JSON artifact that
+:func:`load_profile` reads); ``fit()`` is the bare line fit over
+(tokens, seconds) samples.  ``tpu_v5e_profile`` keeps the reference's
+analytic TPU profile for API parity.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import json
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, replace
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -110,8 +112,11 @@ A100_LLAMA31_8B = HardwareProfile(
 
 def tpu_v5e_profile(n_params: float, tp: int = 16,
                     name: str = "v5e") -> HardwareProfile:
-    """Analytic v5e profile from roofline constants.
+    """Analytic TPU v5e profile, kept for API parity with the reference.
 
+    Its constants (197e12 FLOP/s, 819e9 B/s per chip) are the
+    reference's TPU datasheet figures, not a measurement of any card the
+    port runs on; ``core.calibrate`` fits that card's profile.
     prefill s/token = 2*N / (tp * 197e12 * mfu), decode s/token =
     2*N_bytes / (tp * 819e9) (weights-bound decode).  mfu ~ 0.5 prefill.
     """
@@ -145,3 +150,20 @@ def load_profile(path: str) -> HardwareProfile:
     with open(path) as f:
         d = json.load(f)
     return profile_from_json(d.get("profile", d))
+
+
+def fit(samples_prefill: Sequence[Tuple[int, float]],
+        samples_decode: Sequence[Tuple[int, float]],
+        base: HardwareProfile = V100_LLAMA2_7B) -> HardwareProfile:
+    """Fit grad1/grad2 from (tokens, iteration_time) measurements
+    (least-squares line, as in the paper's Fig. 4).  Kept for
+    simulator-side Fig. 4 sweeps; the measured engine-side calibration
+    with fit diagnostics lives in ``core.calibrate`` (this shares its
+    line fitter, so the two paths cannot drift)."""
+    from repro_torch.core.calibrate import linear_fit   # import cycle
+    pf = linear_fit(samples_prefill)
+    df = linear_fit(samples_decode)
+    return replace(base, name=base.name + "-fit", grad1=pf.slope,
+                   grad2=df.slope,
+                   t_decode_base=max(df.intercept, 1e-4),
+                   t_prefill_base=max(pf.intercept, 0.0))

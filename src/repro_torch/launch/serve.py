@@ -37,9 +37,18 @@ calibrated simulator or real LLM engines (twin of
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
       --requests 12
 
-Calibration (``--calibrate``) and the device-resident simulator
-(``--backend jax``) come with later slices of the port; asking for them
-exits with a message saying so.
+  # calibrate a HardwareProfile from the reduced --arch engine
+  # (core.calibrate): sweep + fit, print diagnostics, write the JSON
+  # artifact; --min-r2 makes a loose fit a non-zero exit
+  PYTHONPATH=src python -m repro_torch.launch.serve --calibrate \
+      --arch qwen3-0.6b --profile-json profile.json --min-r2 0.95
+
+  # serve on a calibrated profile instead of the V100 default
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
+      --profile-json profile.json
+
+The device-resident simulator (``--backend jax``) comes with a later
+slice of the port; asking for it exits with a message saying so.
 """
 from __future__ import annotations
 
@@ -54,12 +63,13 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.core import calibrate as cal
 from repro_torch.core import impact, rl_router as rl
 from repro_torch.core import workload as wl
 from repro_torch.core.cluster_manager import (ManagedCluster,
                                               ManagedClusterConfig)
 from repro_torch.core.predictor import quick_bucket_predictor
-from repro_torch.core.profiles import V100_LLAMA2_7B, load_profile
+from repro_torch.core.profiles import V100_LLAMA2_7B
 from repro_torch.models import params as params_lib
 from repro_torch.serving import obs
 from repro_torch.serving import trace as trace_lib
@@ -78,11 +88,48 @@ LATER = "comes with a later slice of the PyTorch port"
 
 
 def _base_profile(args):
-    """The serving profile: a calibrated JSON artifact when given,
-    else the paper's V100 calibration."""
-    if getattr(args, "profile_json", None):
-        return load_profile(args.profile_json)
+    """The serving profile: a calibrated JSON artifact when given (under
+    ``--calibrate`` that path is the output, not an input), else the
+    paper's V100 calibration."""
+    if (getattr(args, "profile_json", None)
+            and not getattr(args, "calibrate", False)):
+        return cal.load_profile(args.profile_json)
     return V100_LLAMA2_7B
+
+
+def run_calibrate(args) -> int:
+    """--calibrate: sweep the reduced engine for --arch on --device, fit
+    a profile, print diagnostics, optionally write --profile-json.
+    Non-zero exit when the fit misses --min-r2 or the gradient sanity
+    ordering.  On the CPU, torch runs the sweep on one intra-op thread
+    (restored afterwards), as the reference pins XLA's."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch).reduced()
+    params = params_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    threads = torch.get_num_threads()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        res = cal.calibrate(cfg, params)
+    finally:
+        torch.set_num_threads(threads)
+    print(cal.format_result(res))
+    if args.profile_json:
+        res.save(args.profile_json)
+        print(f"wrote {args.profile_json}")
+    failures = []
+    if res.prefill_fit.r2 < args.min_r2:
+        failures.append(f"prefill R^2 {res.prefill_fit.r2:.4f} "
+                        f"< {args.min_r2}")
+    if res.decode_fit.r2 < args.min_r2:
+        failures.append(f"decode R^2 {res.decode_fit.r2:.4f} "
+                        f"< {args.min_r2}")
+    if not res.ok:
+        failures.append("gradient sanity (grad1 > grad2 > 0) failed")
+    for f in failures:
+        print(f"CALIBRATION GATE: {f}")
+    return 1 if failures else 0
 
 
 def _tiny_engines(args, capacity: int = 400) -> List[LLMInstance]:
@@ -234,6 +281,8 @@ SIM_ONLY = ("pattern", "sessions", "drift", "train_episodes",
             "sim_backend")
 #: flags only ``--online`` reads (dest names)
 ONLINE_ONLY = ("guardrail", "online_eps", "save_learner")
+#: flags only ``--calibrate`` reads (dest names)
+CALIBRATE_ONLY = ("min_r2",)
 
 
 def _given(args, dests) -> List[str]:
@@ -411,8 +460,7 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
 
 def build_parser() -> argparse.ArgumentParser:
     """The reference's flags that the ported modes read, plus
-    ``--device``.  ``--min-r2``, read only by calibration, comes with
-    the slice that ports it, so argparse rejects it here."""
+    ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("sim", "engine", "gateway"),
                     default="sim")
@@ -516,11 +564,17 @@ def build_parser() -> argparse.ArgumentParser:
                     "as JSON, or Prometheus text if PATH ends in "
                     ".prom")
     ap.add_argument("--calibrate", action="store_true",
-                    help="fit a HardwareProfile from the engine (a "
-                    "later slice)")
+                    help="sweep the reduced --arch engine on --device "
+                    "and fit a HardwareProfile (core.calibrate); prints "
+                    "fit diagnostics and exits")
     ap.add_argument("--profile-json", default=None,
-                    help="serve with the profile loaded from this JSON "
-                    "instead of the default V100 calibration")
+                    help="with --calibrate: write the calibrated "
+                    "profile artifact here; otherwise: serve with the "
+                    "profile loaded from this JSON instead of the "
+                    "default V100 calibration")
+    ap.add_argument("--min-r2", type=float, default=0.0,
+                    help="with --calibrate: exit non-zero unless both "
+                    "fits reach this R^2")
     ap.add_argument("--arch", default="llama-2-7b")
     ap.add_argument("--instances", type=int, default=4)
     ap.add_argument("--requests", type=int, default=400)
@@ -534,7 +588,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.calibrate:
-        sys.exit(f"--calibrate {LATER}")
+        sys.exit(run_calibrate(args))
+    given = _given(args, CALIBRATE_ONLY)
+    if given:
+        sys.exit(f"{', '.join(given)}: read only with --calibrate")
     given = [] if args.online else _given(args, ONLINE_ONLY)
     if given:
         sys.exit(f"{', '.join(given)}: read only with --online")

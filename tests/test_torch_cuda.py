@@ -579,3 +579,61 @@ def test_cuda_online_publish_is_a_snapshot(cuda_device):
     tr._publish()
     for a, b in zip(served.params.parameters(), agent.params.parameters()):
         assert torch.equal(a, b)
+
+
+# -- the simulator<->engine loop on the card ---------------------------------
+
+@pytest.mark.cuda
+def test_cuda_calibration_of_reduced_qwen3(cuda_device):
+    """The sweeps on the card (the kernels launched once a layer a
+    prefill and a decode step), the grids as x values, and a sane fit:
+    the prompts run to 8192 tokens, where the f32 flash kernel's
+    quadratic device time passes the host's dispatch time of a 2-layer
+    model, so the prefill slope is the card's and not host noise (the
+    kernel takes head_dim 32, 64 or 128)."""
+    from repro_torch.core import calibrate as cal
+    cfg = get_config("qwen3-0.6b").reduced(head_dim=32)
+    params = params_lib.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    ccfg = cal.CalibrationConfig(
+        prompt_grid=(1024, 2048, 4096, 6144, 8192),
+        decode_grid=((1, 64), (2, 128), (4, 256), (8, 512)),
+        decode_steps_per_call=4, repeats=5, warmup=2,
+        prefill_cache_len=8192)
+    fa0, da0 = fa.launches, da.launches
+    res = cal.calibrate(cfg, params, ccfg)
+    calls = ccfg.warmup + ccfg.repeats
+    assert fa.launches - fa0 == cfg.n_layers * 5 * calls
+    assert da.launches - da0 == cfg.n_layers * 4 * calls * 4
+    assert [x for x, _ in res.prefill_samples] == [1024, 2048, 4096, 6144,
+                                                   8192]
+    assert [x for x, _ in res.decode_samples] == [64, 256, 1024, 4096]
+    assert all(t > 0 for _, t in res.prefill_samples + res.decode_samples)
+    assert res.ok, cal.format_result(res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saturate", [False, True])
+def test_cuda_fidelity_engine_leg_equals_cpu(cuda_device, saturate):
+    """The reduced engine leg on the card gives the report the same leg
+    gives on the CPU: every clock is virtual (head_dim 32: the flash
+    kernel's smallest)."""
+    from repro_torch.core.profiles import V100_LLAMA2_7B
+    from repro_torch.serving import fidelity as fid
+    cfg = get_config("qwen3-0.6b").reduced(head_dim=32)
+    p_cpu = params_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    p_gpu = params_lib.from_reference(_numpy_tree(p_cpu), device=cuda_device)
+    fcfg = fid.FidelityConfig(
+        backends=("py", "engine"), n_requests=12, n_instances=1, n_slots=2,
+        cache_len=64, capacity_tokens=80 if saturate else 200,
+        prompt_lengths=(16, 32), decode_range=(4, 12), rate=6.0,
+        saturate=saturate)
+    card = fid.run_fidelity(V100_LLAMA2_7B, fcfg, model_cfg=cfg,
+                            params=p_gpu)
+    assert card == fid.run_fidelity(V100_LLAMA2_7B, fcfg, model_cfg=cfg,
+                                    params=p_cpu)
+    assert card["backends"]["engine"]["completed"] == 12
+    if saturate:
+        assert card["deltas"]["engine_vs_py"]["preemptions"]["both_preempt"]

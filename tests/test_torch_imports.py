@@ -43,6 +43,8 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(_port_modules()) > 20
+    assert {"repro_torch.core.calibrate",
+            "repro_torch.serving.fidelity"} <= set(_port_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -83,20 +85,31 @@ def test_entry_points_default_to_the_card():
         serve.main(["--mode", "gateway", "--backend", "engine",
                     "--requests", "1", "--instances", "1",
                     "--arch", "qwen3-0.6b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--calibrate", "--arch", "qwen3-0.6b"])
     for argv in (["--mode", "sim"], ["--mode", "gateway"],
                  ["--mode", "gateway", "--backend", "py", "--policy", "rl"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(argv + ["--requests", "4", "--train-episodes", "1"])
 
 
-def test_serve_cli_refuses_unported_modes():
+def test_serve_cli_refuses_unported_modes(monkeypatch, capsys):
+    from repro_torch.core import calibrate as cal
     from repro_torch.launch import serve
     for argv in (["--mode", "gateway", "--backend", "jax"],
                  ["--mode", "gateway", "--backend", "jax", "--online"],
-                 ["--mode", "gateway", "--sim-backend", "jax"],
-                 ["--calibrate"]):
+                 ["--mode", "gateway", "--sim-backend", "jax"]):
         with pytest.raises(SystemExit, match="later slice"):
             serve.main(argv + ["--device", "cpu"])
+    # calibration is ported: it runs (on stub sweeps here) and exits 0
+    monkeypatch.setattr(cal, "sweep_prefill",
+                        lambda *a: [(32.0, 0.01), (64.0, 0.02)])
+    monkeypatch.setattr(cal, "sweep_decode",
+                        lambda *a: [(64.0, 0.011), (128.0, 0.012)])
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--calibrate", "--device", "cpu"])
+    assert exc.value.code == 0
+    assert "sanity (grad1 > grad2 > 0): OK" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="simulator backend"):
         serve.main(["--mode", "gateway", "--backend", "engine", "--online",
                     "--device", "cpu"])
@@ -117,19 +130,14 @@ def test_serve_cli_rejects_simulator_only_flags(flag):
 @pytest.mark.parametrize("flag", [
     ["--guardrail", "0.1"], ["--online-eps", "0.1"],
     ["--save-learner", "d"], ["--min-r2", "0.5"]])
-def test_serve_cli_rejects_online_and_calibration_flags(flag, capsys):
+def test_serve_cli_rejects_online_and_calibration_flags(flag):
     """Flags that only online learning reads are refused without
-    ``--online``, so none is silently ignored; the flag only calibration
-    reads (a later slice) is not accepted at all."""
+    ``--online``, and the flag only calibration reads is refused without
+    ``--calibrate``, so none is silently ignored."""
     from repro_torch.launch import serve
-    if flag[0] != "--min-r2":
-        with pytest.raises(SystemExit, match="only with --online"):
-            serve.main(["--mode", "gateway", "--device", "cpu"] + flag)
-        return
-    with pytest.raises(SystemExit) as exc:
-        serve.build_parser().parse_args(["--mode", "gateway"] + flag)
-    assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    mode = "--calibrate" if flag[0] == "--min-r2" else "--online"
+    with pytest.raises(SystemExit, match=f"only with {mode}"):
+        serve.main(["--mode", "gateway", "--device", "cpu"] + flag)
 
 
 def test_chip_smoke_fails_without_the_card(tmp_path):
