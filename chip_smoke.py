@@ -26,7 +26,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      shapes with a ragged S and S=1 (1e-4), and at falcon-mamba-7b's
      width with a random a_log per (channel, state) at S=1024 and at S
      ragged against the kernel's 64-step chunks (1, 31, 33, 1017), bf16
-     and f32;
+     and f32; bf16 flash (Sq 1-1500) and the bf16 decode mode (B=8,
+     S=2048, kv_len across the split's edges) at phase 9's MHA heads,
+     musicgen-medium's (H=KV=24, hd=64) and deepseek-moe-16b's (H=KV=16,
+     hd=128), 2e-2;
   3. timing with CUDA events (median of 30 runs after warm-up, L2 flushed
      before each run; ``ms`` from the call's enqueue on, ``device_ms``
      with a spin kernel ahead of the start event that keeps the card busy
@@ -38,9 +41,13 @@ Phases, in order; any failure raises and the process exits non-zero:
      selective scan), beside the least time the card could take; flash
      at qwen3-0.6b's prefill shape and at llama-2-7b's, the scan at
      S=1024 and S=100;
-  4. small reduced models (qwen3-0.6b, falcon-mamba-7b) on the card
-     (kernels) against the same models on the CPU (plain versions),
-     logits within 1e-3;
+  4. small reduced models of every family on the card (kernels)
+     against the same models on the CPU (plain versions), prefill 37 + 4
+     decode steps, logits within 1e-3: qwen3-0.6b, falcon-mamba-7b,
+     deepseek-moe-16b, minicpm3-4b, jamba-v0.1-52b,
+     llama-3.2-vision-11b (cross gates 0.5 / -0.3, seeded vision input)
+     and musicgen-medium (seeded frame embeddings), head_dim 32 where a
+     kernel runs;
   5. serving: full-width qwen3-0.6b (28 layers, bf16, seeded random
      weights) on two ``LLMInstance`` engines through the port's
      ``serve_engine``, with the kernels' launch counts read around that
@@ -110,7 +117,28 @@ Phases, in order; any failure raises and the process exits non-zero:
      equals py and the engine's P95 E2E is within bench_fidelity's band
      (0.35) of py's on both; (d) the
      saturating stream on one qwen3-0.6b engine x 2 slots: both the
-     simulator and the engine preempt, and every request completes.
+     simulator and the engine preempt, and every request completes;
+  9. the MoE and MLA families at full width (bf16, seeded random
+     weights; phase 8's weights freed first, each model freed before
+     the next): (a) deepseek-moe-16b (28 layers, the first dense; 64
+     experts top-6 + 2 shared; 16.38 B) and (b) minicpm3-4b (62 MLA
+     layers; 4.26 B) each on two engines x 8 slots x 2048 through
+     ``serve_gateway`` under ``rl`` (phase 5b's restored router), 16
+     requests (prompts 100-1500, outputs 16-64, 1/s), the launch counts
+     read around each run (deepseek: flash 28 x admissions, bf16 decode
+     28 x iterations; minicpm3: none), one decode step and one prefill
+     of the median prompt profiled; (c) model-level: ``gather``,
+     ``ragged`` and ``dense`` on the same 8 and 512 rows at deepseek's
+     and jamba's widths (within 2e-2 of max |y|, peak memory printed),
+     and 3 decode steps after a 300-token prefill against fresh prefills
+     of the same positions for minicpm3-4b, llama-3.2-vision-11b (9.78
+     B, vision [1, 1024, 1280], cross gates 0.5 / -0.3),
+     musicgen-medium (1.36 B, frame embeddings), deepseek-moe-16b and
+     jamba-v0.1-52b cut to one period (8 of 32 layers, widths intact,
+     13.30 B), each check's launch counts asserted (jamba's scan
+     included); the error is asserted within 5% of max |logit| for the
+     models without routed experts and printed with the top-1
+     agreement for the two with them.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -188,6 +216,12 @@ BF16_LENS = ([0, 63, 64, 65, 255, 256, 257, 2049],
 SCAN_RANDOM_A_S = (1024, 1, 31, 33, 1017)
 # llama-2-7b's prefill attention (phase 3's second flash shape)
 LLAMA_PREFILL = dict(s=1024, h=32, kvh=32, hd=128)
+# phase 9's attention heads (MHA): musicgen-medium's and deepseek-moe-16b's,
+# with flash's Sq across the 64-row tiles' edges up to the stream's longest
+# prompt and the bf16 decode mode's kv_len across its split's edges
+NEW_HEADS = (("musicgen-medium", 24, 64), ("deepseek-moe-16b", 16, 128))
+FLASH_NEW_SQ = (1, 63, 65, 300, 1500)
+DECODE_NEW_LENS = [0, 1, 64, 65, 513, 1500, 2048, 2051]
 
 
 def log(*a):
@@ -301,6 +335,24 @@ def check_kernels(torch, fa, da, ms, quantize_kv):
         compare("decode_attention", da.decode_attention(q, k, v, lens),
                 da.decode_attention_plain(q, k, v, lens), BF16_TOL,
                 f"decode bf16 B=8 S=1024 H=16 KV=8 hd=128 "
+                f"kv_len={lens.tolist()}")
+    # phase 9's MHA shapes (drawn after every case above): bf16 flash
+    # across the q tiles' edges up to the stream's longest prompt, and
+    # the bf16 decode mode over 8 slots x 2048 across the split's edges
+    for name, heads, hd in NEW_HEADS:
+        for sq in FLASH_NEW_SQ:
+            q, k, v = (rand((1, sq, heads, hd), torch.bfloat16)
+                       for _ in range(3))
+            compare("flash_attention", fa.flash_attention(q, k, v),
+                    fa.flash_attention_plain(q, k, v), BF16_TOL,
+                    f"flash bf16 {name} H=KV={heads} hd={hd} Sq={sq}")
+        q = rand((8, 1, heads, hd), torch.bfloat16)
+        k, v = (rand((8, 2048, heads, hd), torch.bfloat16)
+                for _ in range(2))
+        lens = torch.tensor(DECODE_NEW_LENS, dtype=torch.int32, device=dev)
+        compare("decode_attention", da.decode_attention(q, k, v, lens),
+                da.decode_attention_plain(q, k, v, lens), BF16_TOL,
+                f"decode bf16 {name} B=8 S=2048 H=KV={heads} hd={hd} "
                 f"kv_len={lens.tolist()}")
     torch.cuda.synchronize()
     return errs
@@ -513,26 +565,76 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
 
 # -- phase 4: reduced model, card against CPU --------------------------------
 
+# reduced models of every family phase 4 holds on the card against the
+# CPU: (arch, what); head_dim 32 wherever a kernel runs
+REDUCED_ARCHS = (
+    ("qwen3-0.6b", "GQA"), ("falcon-mamba-7b", "Mamba-1"),
+    ("deepseek-moe-16b", "MoE, dense first layer"),
+    ("minicpm3-4b", "MLA"), ("jamba-v0.1-52b", "Mamba + attention + MoE"),
+    ("llama-3.2-vision-11b", "cross-attention, gates 0.5 / -0.3, seeded "
+     "vision input"), ("musicgen-medium", "seeded frame embeddings"))
+CROSS_GATES = {"gate_attn": 0.5, "gate_ffn": -0.3}
+
+
+def set_cross_gates(params):
+    """Non-zero cross-attention gates (zero at initialisation, where a
+    cross layer adds nothing), so that checks exercise those layers."""
+    for layer in params["layers"]:
+        for name, g in CROSS_GATES.items():
+            if name in layer:
+                layer[name].fill_(g)
+
+
+def model_inputs(torch, cfg, dtype, batch, length, gen, device):
+    """Seeded inputs of ``length`` positions: ({"tokens" or "embeds"},
+    {"vision"} or {}), embeddings in ``dtype``."""
+    if cfg.input_mode == "tokens":
+        seq = {"tokens": torch.randint(0, cfg.vocab_size, (batch, length),
+                                       generator=gen, device=device)}
+    else:
+        seq = {"embeds": torch.randn((batch, length, cfg.d_model),
+                                     generator=gen, device=device).to(dtype)}
+    vis = {}
+    if cfg.vision_tokens:
+        vis["vision"] = torch.randn((batch, cfg.vision_tokens,
+                                     cfg.vision_dim), generator=gen,
+                                    device=device).to(dtype)
+    return seq, vis
+
+
+def seq_slice(seq, start, stop):
+    """Positions ``start:stop`` of the inputs; one token position is
+    passed to ``decode_step`` as ``tokens [B]``."""
+    (name, x), = seq.items()
+    x = x[:, start:stop]
+    if name == "tokens" and stop - start == 1:
+        x = x[:, 0]
+    return {name: x}
+
+
 def check_reduced_model(torch, get_config, params_lib, model_lib):
-    for cfg, what in ((get_config("qwen3-0.6b").reduced(head_dim=32),
-                       "reduced qwen3-0.6b (hd=32, f32)"),
-                      (get_config("falcon-mamba-7b").reduced(),
-                       "reduced falcon-mamba-7b (f32)")):
+    for arch, what in REDUCED_ARCHS:
+        over = {} if arch == "falcon-mamba-7b" else {"head_dim": 32}
+        cfg = get_config(arch).reduced(**over)
         gen = torch.Generator().manual_seed(0)
         p_cpu = params_lib.init_params(cfg, gen, device="cpu")
+        set_cross_gates(p_cpu)
         p_gpu = params_lib.from_reference(_tree_numpy(p_cpu), device="cuda")
-        toks = torch.randint(0, cfg.vocab_size, (2, 41),
-                             generator=torch.Generator().manual_seed(1))
+        seq, vis = model_inputs(torch, cfg, torch.float32, 2, 41,
+                                torch.Generator().manual_seed(1), "cpu")
+
+        def cuda(d):
+            return {k: v.cuda() for k, v in d.items()}
         with torch.no_grad():
-            lc, cc = model_lib.prefill(p_cpu, cfg, toks[:, :37],
-                                       cache_len=39)
-            lg, cg = model_lib.prefill(p_gpu, cfg, toks[:, :37].cuda(),
-                                       cache_len=39)
+            first = dict(seq_slice(seq, 0, 37), **vis)
+            lc, cc = model_lib.prefill(p_cpu, cfg, cache_len=39, **first)
+            lg, cg = model_lib.prefill(p_gpu, cfg, cache_len=39,
+                                       **cuda(first))
             pairs = [(lc, lg)]
             for t in range(37, 41):    # the last two run past the cache
-                lc, cc = model_lib.decode_step(p_cpu, cfg, cc, toks[:, t])
-                lg, cg = model_lib.decode_step(p_gpu, cfg, cg,
-                                               toks[:, t].cuda())
+                step = seq_slice(seq, t, t + 1)
+                lc, cc = model_lib.decode_step(p_cpu, cfg, cc, **step)
+                lg, cg = model_lib.decode_step(p_gpu, cfg, cg, **cuda(step))
                 pairs.append((lc, lg))
         err = 0.0
         for i, (c, gpu) in enumerate(pairs):
@@ -542,8 +644,9 @@ def check_reduced_model(torch, get_config, params_lib, model_lib):
             torch.testing.assert_close(gpu, c, rtol=REDUCED_TOL,
                                        atol=REDUCED_TOL)
             err = max(err, float((gpu - c).abs().max()))
-        log(f"  {what} prefill 37 + 4 decode: card vs CPU max_abs_err="
-            f"{err:.3e} (tol {REDUCED_TOL})")
+        hd = f"hd={cfg.head_dim}, " if over else ""
+        log(f"  reduced {arch} ({what}; {hd}f32) prefill 37 + 4 decode: "
+            f"card vs CPU max_abs_err={err:.3e} (tol {REDUCED_TOL})")
 
 
 def _tree_numpy(tree):
@@ -1600,16 +1703,29 @@ FID_SATURATE = dict(backends=("py", "vec", "engine"), n_requests=8,
                     decode_range=(16, 48), rate=2.0, saturate=True)
 
 
-def _expect_attention(cfg, launches, prefills, steps):
-    """The attention paths' counts: flash once a layer a prefill, the
-    cache's decode mode once a layer a decode step, nothing else."""
+def layer_counts(cfg):
+    """(kernel attention layers, mamba layers): GQA self-attention layers
+    (the dense first layer's included) reach flash and decode attention,
+    mamba layers the scan; MLA and cross-attention reach no kernel."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_scan_layers)]
+    attn = 0
+    if cfg.attention != "mla":
+        attn = kinds.count("attn") + int(cfg.dense_first_layer)
+    return attn, kinds.count("mamba")
+
+
+def expect_layers(cfg, launches, prefills, steps):
+    """Each kernel once a layer of its kind per prefill (flash, the scan)
+    or per decode step (the cache's decode mode), nothing else; at least
+    one of each pass ran."""
+    assert prefills > 0 and steps > 0, (prefills, steps)
+    attn, mamba = layer_counts(cfg)
     dec = ("decode_attention_int8" if cfg.kv_cache_dtype == "int8"
            else "decode_attention")
-    assert launches["flash_attention"] == cfg.n_layers * prefills > 0, (
-        launches, prefills)
-    assert launches[dec] == cfg.n_layers * steps > 0, (launches, steps)
-    others = set(launches) - {"flash_attention", dec}
-    assert all(launches[k] == 0 for k in others), launches
+    want = {"flash_attention": attn * prefills, "decode_attention": 0,
+            "decode_attention_int8": 0, "mamba_scan": mamba * prefills}
+    want[dec] = attn * steps
+    assert launches == want, (launches, want)
 
 
 def calibrate_on_card(torch, m, cfg, params, grid, name, measured):
@@ -1629,7 +1745,7 @@ def calibrate_on_card(torch, m, cfg, params, grid, name, measured):
     wall = time.perf_counter() - t0
     launches = read_launches(m)
     calls = ccfg.warmup + ccfg.repeats
-    _expect_attention(cfg, launches, len(ccfg.prompt_grid) * calls,
+    expect_layers(cfg, launches, len(ccfg.prompt_grid) * calls,
                       len(ccfg.decode_grid) * calls
                       * ccfg.decode_steps_per_call)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1700,7 +1816,7 @@ def fidelity_on_card(torch, m, cfg, params, fcfg, profile, what):
         m.fid.LLMInstance = m.LLMInstance
     prefills = sum(e.n_prefills for e in made)
     steps = sum(e.n_decode_steps for e in made)
-    _expect_attention(cfg, launches, prefills, steps)
+    expect_layers(cfg, launches, prefills, steps)
     backends = rep["backends"]
     assert backends["vec"] == backends["py"], "vec diverged from py"
     for name, b in backends.items():
@@ -1768,6 +1884,300 @@ def loop_phase(torch, m, qwen, llama, served, gateway):
     return launches, out
 
 
+# -- phase 9: the MoE and MLA families behind the gateway, every family at
+# full width --------------------------------------------------------------
+
+DEEPSEEK_PARAMS = 16_375_728_128
+MINICPM3_PARAMS = 4_261_902_848
+VISION_PARAMS = 9_780_400_144
+MUSICGEN_PARAMS = 1_362_249_216
+# jamba-v0.1-52b cut to one period (8 of 32 layers, every width intact):
+# the 52 B model does not fit one card in bf16
+JAMBA_PERIOD_PARAMS = 13_295_235_072
+# 9c: a prefill of S tokens, then this many decode steps, each held to the
+# last logits of a prefill of the same positions
+DECODE_CHECK_S = 300
+DECODE_CHECK_STEPS = 3
+DECODE_CHECK_TOL = 0.05      # of max |logit|, for models without routing
+MOE_CHECK_ROWS = (8, 512)
+MOE_CHECK_TOL = 2e-2         # of max |y| between the three MoE paths
+
+
+def gather_with_copies(torch, m, cfg, p, x):
+    """The reference's ``moe_gather`` as written (``moe.py:234-256``):
+    ``[T,k,d,f]`` copies of each row's chosen experts' weights, then one
+    product a (row, expert) pair.  A yardstick for the port's gather,
+    which runs every expert on the rows instead; used nowhere else."""
+    _, idx, w = m.moe._router(p, x, cfg)
+    r = p["routed"]
+    xx = x[:, None, None]
+    h = torch.nn.functional.silu(xx @ r["w_gate"][idx]) * (xx @ r["w_up"][idx])
+    y = (h @ r["w_down"][idx])[:, :, 0]
+    return torch.sum(y * w[..., None].to(y.dtype), dim=1).to(x.dtype)
+
+
+def moe_check(torch, m, cfg, p_moe, name):
+    """9c (i): ``gather``, ``ragged`` and ``dense`` on the same hidden
+    rows at full width route the same rows the same way, so they agree
+    within MOE_CHECK_TOL of the largest output.  Each one's peak memory
+    beside the weights and its time (``time_ms``: CUDA events, median
+    of TIMING_RUNS, L2 flushed) are printed, and at 8 rows (the engine's decode) the reference's gather
+    with weight copies beside the port's."""
+    assert cfg.gated_mlp and cfg.activation == "silu", cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for rows in MOE_CHECK_ROWS:
+        x = torch.randn((rows, cfg.d_model), generator=gen, device="cuda")
+        x = x.to(m.params_lib.torch_dtype(cfg.dtype))
+        res = {}
+        with torch.no_grad():
+            for impl, fn in m.moe.IMPLS.items():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                y, aux = fn(p_moe, cfg, x)
+                torch.cuda.synchronize()
+                res[impl] = dict(
+                    y=y, aux=float(aux), peak_gb=(
+                        torch.cuda.max_memory_allocated() - base) / 1e9,
+                    ms=time_ms(torch, lambda: fn(p_moe, cfg, x), flush))
+            if rows <= 8:
+                copies = gather_with_copies(torch, m, cfg, p_moe, x)
+                copies_ms = time_ms(torch, lambda: gather_with_copies(
+                    torch, m, cfg, p_moe, x), flush)
+        ref = res["dense"]["y"].float()
+        scale = float(ref.abs().max())
+        assert scale > 0 and bool(torch.isfinite(ref).all()), name
+        errs = {}
+        for impl, r in res.items():
+            errs[impl] = float((r["y"].float() - ref).abs().max())
+            assert errs[impl] <= MOE_CHECK_TOL * scale, (name, rows, impl,
+                                                         errs[impl], scale)
+            assert abs(r["aux"] - res["dense"]["aux"]) < 1e-4, (impl, r)
+        log(f"  (9c-i) {name} MoE, {rows} rows: max |y| {scale:.3f}; "
+            + ", ".join(f"{impl} err {errs[impl]:.3e}, {r['ms']:.3f} ms, "
+                        f"peak +{r['peak_gb']:.2f} GB"
+                        for impl, r in res.items())
+            + f" (tol {MOE_CHECK_TOL} x max |y|)")
+        out[rows] = {impl: dict(err=errs[impl], ms=r["ms"],
+                                peak_gb=r["peak_gb"], aux=r["aux"])
+                     for impl, r in res.items()}
+        out[rows]["scale"] = scale
+        if rows <= 8:
+            err = float((copies.float() - res["gather"]["y"].float()
+                         ).abs().max())
+            assert err <= MOE_CHECK_TOL * scale, (name, err)
+            log(f"  (9c-i) {name}, {rows} rows: the reference's gather "
+                f"with [T,k,d,f] weight copies {copies_ms:.3f} ms against "
+                f"the port's {res['gather']['ms']:.3f} ms (err "
+                f"{err:.3e})")
+            out[rows]["gather_with_copies_ms"] = copies_ms
+    return out
+
+
+def decode_check(torch, m, cfg, params, name, routed):
+    """9c (ii): a prefill of DECODE_CHECK_S positions, then
+    DECODE_CHECK_STEPS decode steps; step t's logits against the last
+    logits of a fresh prefill of the same S+t+1 positions (seeded inputs;
+    vision inputs where the model has cross layers).  Without routed
+    experts the error is asserted within DECODE_CHECK_TOL of max |logit|;
+    with them it is printed with the top-1 agreement (in bf16, a prefill
+    and a decode step may route a near-tied token to different
+    experts).  The launch counts are read around the whole check."""
+    s, n = DECODE_CHECK_S, DECODE_CHECK_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    seq, vis = model_inputs(torch, cfg, m.params_lib.torch_dtype(cfg.dtype),
+                            1, s + n, gen, "cuda")
+    cache_len = s + 8
+    errs, rel, agree = [], [], 0
+    torch.cuda.synchronize()
+    reset_launches(m)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = m.model_lib.prefill(
+            params, cfg, cache_len=cache_len, **seq_slice(seq, 0, s), **vis)
+        finite = [torch.isfinite(logits).all()]
+        for t in range(n):
+            logits, cache = m.model_lib.decode_step(
+                params, cfg, cache, **seq_slice(seq, s + t, s + t + 1))
+            want, _ = m.model_lib.prefill(
+                params, cfg, cache_len=cache_len,
+                **seq_slice(seq, 0, s + t + 1), **vis)
+            finite += [torch.isfinite(logits).all(),
+                       torch.isfinite(want).all()]
+            err = float((logits.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            errs.append(err)
+            rel.append(err / scale)
+            agree += int(torch.argmax(logits) == torch.argmax(want))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(m)
+    assert bool(torch.stack(finite).all()), f"{name}: non-finite logits"
+    assert logits.shape == (1, cfg.vocab_size), logits.shape
+    expect_layers(cfg, launches, n + 1, n)
+    log(f"  (9c-ii) {name}: decode vs prefill at S={s}+1..{s + n}: "
+        f"max err {max(errs):.4f} = {max(rel):.4f} x max |logit|, top-1 "
+        f"agrees {agree}/{n} ({wall:.2f} s); launches {launches}")
+    if not routed:
+        assert max(rel) <= DECODE_CHECK_TOL, (name, rel)
+    return launches, dict(errs=errs, rel=rel, top1_agree=agree, steps=n,
+                          wall_s=wall, launches=launches)
+
+
+def mla_bytes_per_token(cfg):
+    """The MLA cache per token (bf16 latent + rope key a layer) beside the
+    decompressed K/V that standard attention would cache."""
+    mc = cfg.mla
+    latent = cfg.n_layers * (mc.kv_lora_rank + mc.qk_rope_head_dim) * 2
+    full = cfg.n_layers * cfg.n_heads * (
+        mc.qk_nope_head_dim + mc.qk_rope_head_dim + mc.v_head_dim) * 2
+    return latent, full
+
+
+def release(torch, what: str = "") -> float:
+    """Print the peak allocated memory since the last release (``what``
+    names the work), then return the allocator's cached blocks once the
+    caller has dropped a model's weights, so that the next model fits.
+    Returns the peak in GB."""
+    torch.cuda.synchronize()
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    if what:
+        log(f"  peak allocated {gb:.2f} GB ({what})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
+def families_phase(torch, np, m, ckpt_dir):
+    """Phase 9: (a) deepseek-moe-16b and (b) minicpm3-4b at full width
+    behind the gateway under ``rl`` (phase 5b's restored router; 2
+    engines x 8 slots x 2048 bf16 KV, FCFS, the V100 profile; 16
+    requests, prompts 100-1500, outputs 16-64, 1/s), each with one decode
+    step and one prefill of the median prompt profiled; (c) every family
+    at full width, model-level: the three MoE paths against each other
+    (deepseek's and jamba's widths) and decode against prefill for
+    minicpm3-4b, llama-3.2-vision-11b, musicgen-medium, deepseek-moe-16b
+    and jamba-v0.1-52b cut to one period.  Each model is freed before
+    the next.  Returns the launch counts per path and the results."""
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+    release(torch)
+
+    # (9a) deepseek-moe-16b
+    cfg = m.get_config("deepseek-moe-16b")
+    mc = cfg.moe
+    assert (cfg.n_layers, cfg.dense_first_layer, cfg.dense_first_d_ff,
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            mc.n_experts, mc.top_k, mc.d_expert, mc.n_shared,
+            cfg.vocab_size, cfg.dtype) == (
+        28, True, 10944, 2048, 16, 16, 128, 64, 6, 1408, 2, 102400,
+        "bfloat16"), cfg
+    params, n_params = init_full_width(
+        torch, m, cfg, "deepseek-moe-16b",
+        "2 engines x 8 slots x 2048 bf16 KV")
+    assert n_params == DEEPSEEK_PARAMS, n_params
+    by_policy, out["deepseek"] = gateway_runs(
+        torch, np, m, cfg, params, 2048, ("rl",),
+        lambda: gateway_stream(np, m.Request, 16, 64, 9, 50_000),
+        lambda *a: expect_layers(cfg, *a), ckpt_dir,
+        (("decode_attention", "dec_split"), ("flash_attention",
+                                             "fa_fwd_tc")))
+    launches["gateway_deepseek_rl"] = by_policy["rl"]
+    out["peak_gb_deepseek_serving"] = release(
+        torch, "deepseek-moe-16b serving: weights, two engines' caches")
+    reset_launches(m)
+    out["moe_deepseek"] = moe_check(torch, m, cfg,
+                                    m.model_lib._index(
+                                        params["layers"][0], 0)["moe"],
+                                    "deepseek-moe-16b")
+    launches["moe_impls"] = read_launches(m)
+    launches["check_deepseek"], out["check_deepseek"] = decode_check(
+        torch, m, cfg, params, "deepseek-moe-16b", routed=True)
+    del params
+    out["peak_gb_deepseek"] = release(torch, "deepseek-moe-16b: the MoE "
+                                      "and decode checks")
+
+    # (9b) minicpm3-4b
+    cfg = m.get_config("minicpm3-4b")
+    ml = cfg.mla
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, ml.q_lora_rank,
+            ml.kv_lora_rank, ml.qk_nope_head_dim, ml.qk_rope_head_dim,
+            ml.v_head_dim, cfg.d_ff, cfg.vocab_size, cfg.attention,
+            cfg.dtype) == (62, 2560, 40, 768, 256, 64, 32, 64, 6400, 73448,
+                           "mla", "bfloat16"), cfg
+    latent, full = mla_bytes_per_token(cfg)
+    params, n_params = init_full_width(
+        torch, m, cfg, "minicpm3-4b",
+        f"2 engines x 8 slots x 2048 MLA latents: {latent} cache bytes a "
+        f"token ({full} decompressed, {full / latent:.1f}x)")
+    assert n_params == MINICPM3_PARAMS, n_params
+    out["minicpm3_cache_bytes_per_token"] = dict(latent=latent, full=full)
+    by_policy, out["minicpm3"] = gateway_runs(
+        torch, np, m, cfg, params, 2048, ("rl",),
+        lambda: gateway_stream(np, m.Request, 16, 64, 10, 60_000),
+        lambda *a: expect_layers(cfg, *a), ckpt_dir,
+        (None, ("gemm", "gemm")))
+    launches["gateway_minicpm3_rl"] = by_policy["rl"]
+    out["peak_gb_minicpm3_serving"] = release(
+        torch, "minicpm3-4b serving: weights, two engines' caches")
+    launches["check_minicpm3"], out["check_minicpm3"] = decode_check(
+        torch, m, cfg, params, "minicpm3-4b", routed=False)
+    del params
+    out["peak_gb_minicpm3"] = release(torch, "minicpm3-4b: decode check")
+
+    # (9c) the other families, model-level
+    cfg = m.get_config("llama-3.2-vision-11b")
+    assert (cfg.n_layers, cfg.n_periods * cfg.layer_pattern.count("cross"),
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vision_tokens,
+            cfg.vision_dim) == (40, 8, 4096, 32, 8, 1024, 1280), cfg
+    params, n_params = init_full_width(
+        torch, m, cfg, "llama-3.2-vision-11b",
+        "8 gated cross layers, gates set to 0.5 / -0.3")
+    assert n_params == VISION_PARAMS, n_params
+    set_cross_gates(params)
+    launches["check_vision"], out["check_vision"] = decode_check(
+        torch, m, cfg, params, "llama-3.2-vision-11b", routed=False)
+    del params
+    out["peak_gb_vision"] = release(torch, "llama-3.2-vision-11b")
+
+    cfg = m.get_config("musicgen-medium")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.input_mode) == (48, 1536, 24, 24, 64,
+                                              "embeddings"), cfg
+    params, n_params = init_full_width(torch, m, cfg, "musicgen-medium",
+                                       "seeded frame embeddings")
+    assert n_params == MUSICGEN_PARAMS, n_params
+    launches["check_musicgen"], out["check_musicgen"] = decode_check(
+        torch, m, cfg, params, "musicgen-medium", routed=False)
+    del params
+    out["peak_gb_musicgen"] = release(torch, "musicgen-medium")
+
+    cfg = dataclasses.replace(m.get_config("jamba-v0.1-52b"), n_layers=8)
+    assert (cfg.n_periods, cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k,
+            cfg.moe.d_expert, cfg.mamba.d_inner) == (
+        1, 4096, 16, 2, 14336, 8192), cfg
+    params, n_params = init_full_width(
+        torch, m, cfg, "jamba-v0.1-52b",
+        "one period of its 4: 7 mamba + 1 attention layer, 4 MoE")
+    assert n_params == JAMBA_PERIOD_PARAMS, n_params
+    reset_launches(m)
+    out["moe_jamba"] = moe_check(torch, m, cfg, m.model_lib._index(
+        params["layers"][1], 0)["moe"], "jamba-v0.1-52b")
+    moe_launches = read_launches(m)
+    launches["moe_impls"] = {k: v + moe_launches[k]
+                             for k, v in launches["moe_impls"].items()}
+    assert not any(launches["moe_impls"].values()), launches["moe_impls"]
+    launches["check_jamba"], out["check_jamba"] = decode_check(
+        torch, m, cfg, params, "jamba-v0.1-52b (one period)", routed=True)
+    del params
+    out["peak_gb_jamba"] = release(torch, "jamba-v0.1-52b, one period")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  families phase {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def write_json(path, obj):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -1805,6 +2215,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import params as params_lib
     from repro_torch.models.attention import quantize_kv
     from repro_torch.serving import fidelity as fid
@@ -1830,7 +2241,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
-    log(f"[1/8] environment: {gpu}; torch {torch.__version__}, CUDA "
+    log(f"[1/9] environment: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = build.library_path()
@@ -1841,10 +2252,10 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    log("[2/8] kernels against their plain versions on the card")
+    log("[2/9] kernels against their plain versions on the card")
     errs = check_kernels(torch, fa, da, ms, quantize_kv)
 
-    log("[3/8] timing (CUDA events, median of "
+    log("[3/9] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
     kv_rng = np.random.default_rng(2)
     kv_lens = [int(x) for x in kv_rng.integers(100, 1025, 7)] + [1100]
@@ -1859,7 +2270,7 @@ def main(argv=None) -> int:
                                    "max_abs_err": errs, "times": times})
         return 0
 
-    log("[4/8] reduced models: card (kernels) against CPU (plain)")
+    log("[4/9] reduced models: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
 
     mods = argparse.Namespace(
@@ -1876,40 +2287,48 @@ def main(argv=None) -> int:
         save_learner=save_learner, restore_learner=restore_learner,
         Gateway=Gateway, GatewayConfig=GatewayConfig,
         OracleLength=OracleLength, sim=sim, legacy=legacy, cal=cal,
-        fid=fid)
-    log("[5/8] serve full-width qwen3-0.6b through serve_engine")
+        fid=fid, moe=moe_mod, model_lib=model_lib)
+    log("[5/9] serve full-width qwen3-0.6b through serve_engine")
     launches, served, qwen = serve(torch, np, mods)
     torch.cuda.empty_cache()
 
-    log("[5b/8] the router's learning path: predictor and DQN router "
+    log("[5b/9] the router's learning path: predictor and DQN router "
         "trained on the card, checkpointed, serving the simulator")
     router_launches, router, ckpt_dir = router_phase(torch, np, mods)
 
-    log("[5c/8] the router's scale-up on the card: batched training over "
+    log("[5c/9] the router's scale-up on the card: batched training over "
         "py and vec, the heterogeneous stream, online learning under "
         "drift")
     scale_launches, scale_up = scale_up_phase(torch, np, mods)
 
-    log("[6/8] the gateway over full-width llama-2-7b (int8 KV cache) "
+    log("[6/9] the gateway over full-width llama-2-7b (int8 KV cache) "
         "through serve_gateway, policies rl (restored) and mixing")
     gw_launches, gateway, llama = gateway_phase(torch, np, mods, ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[7/8] the gateway over full-width falcon-mamba-7b through "
+    log("[7/9] the gateway over full-width falcon-mamba-7b through "
         "serve_gateway, policy rl (restored)")
     mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods,
                                                         ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[8/8] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
+    log("[8/9] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
         "calibrated on the card, sim-vs-engine fidelity on both profiles, "
         "the saturating stream")
     loop_launches, loop = loop_phase(torch, mods, qwen, llama, served,
                                      gateway)
+    del qwen, llama
+    release(torch)
+
+    log("[9/9] the MoE and MLA families behind the gateway at full width "
+        "(deepseek-moe-16b, minicpm3-4b; rl restored), every family "
+        "model-level at full width")
+    fam_launches, families = families_phase(torch, np, mods, ckpt_dir)
     # each path's own counts (reset before it, read after it): phase 5's
     # serve_engine, phase 5b's router path, phase 5c's three parts, phase
     # 6's gateway under each policy, phase 7's, phase 8's two sweeps and
-    # three fidelity runs
+    # three fidelity runs, phase 9's gateway runs, MoE check and five
+    # decode checks
     by_path = {"serve_engine": launches,
                "router": router_launches,
                "batched": scale_launches["batched"],
@@ -1918,7 +2337,7 @@ def main(argv=None) -> int:
                "gateway_rl": gw_launches["rl"],
                "gateway_mixing": gw_launches["mixing"],
                "gateway_mamba_rl": mamba_launches["rl"],
-               **loop_launches}
+               **loop_launches, **fam_launches}
     log(f"  launches per serving path: {by_path}")
 
     kernels = []
@@ -1960,7 +2379,7 @@ def main(argv=None) -> int:
                                "scale_up": scale_up,
                                "gateway": gateway,
                                "gateway_mamba": mamba_gateway,
-                               "loop": loop})
+                               "loop": loop, "families": families})
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

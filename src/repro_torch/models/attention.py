@@ -1,9 +1,11 @@
-"""GQA/MHA/MQA self-attention (PyTorch twin of ``repro.models.attention``).
+"""GQA/MHA/MQA self-attention and VLM cross-attention (PyTorch twin of
+``repro.models.attention``).
 
-Attention itself always goes through ``repro_torch.kernels``: the
+Self-attention always goes through ``repro_torch.kernels``: the
 wrappers run the plain PyTorch version for CPU tensors and the
 hand-written CUDA kernel for CUDA tensors, so on the card no path reaches
-attention without the kernel.  ``cfg.use_pallas`` is not read.
+self-attention without the kernel.  ``cfg.use_pallas`` is not read.
+Cross-attention is plain PyTorch, as the reference's is plain jnp.
 
 Where the JAX model returns a fresh cache (and the engine donates the old
 buffer), these functions update the caller's cache tensors in place.
@@ -18,7 +20,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 # the reference's ``gqa_core``, shared with the kernels' plain versions
-from repro_torch.kernels.plain import gqa_core  # noqa: F401
+from repro_torch.kernels.plain import gqa_core
 from repro_torch.models import ops
 
 
@@ -124,3 +126,36 @@ def self_attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         out = da_ops.decode_attention(q, cache_entry["k"],
                                       cache_entry["v"], kv_len)
     return _out_proj(out, p)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (llama-3.2-vision style gated cross-attention layers)
+# ---------------------------------------------------------------------------
+
+CROSS_BLOCK_Q = 512
+
+
+def cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    vis_kv: Dict) -> torch.Tensor:
+    """x [B,S,d] attends, unmasked, over the fixed vision K/V
+    [B,Tv,KV,hd].  Plain PyTorch, as in the reference, which reaches no
+    kernel here.  One path for every S: ``gqa_core`` in f32, in blocks of
+    512 query rows above 1024 (rows are independent, so the blocking
+    changes no value).  The reference switches to ``gqa_blocked`` above
+    1024 rows, whose bf16 operands and bf16 softmax weights differ from
+    this path by bf16 rounding in a bf16 model; in f32 both branches
+    agree with it within 1e-4."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    s = q.shape[1]
+    step = CROSS_BLOCK_Q if s > 1024 else s
+    out = torch.cat([gqa_core(q[:, i:i + step], vis_kv["k"], vis_kv["v"],
+                              None) for i in range(0, s, step)], dim=1)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def vision_kv(p: Dict, cfg: ModelConfig, vis: torch.Tensor) -> Dict:
+    """Project the (projected, stub) vision embeddings [B,Tv,d] to the
+    cross layer's K/V once."""
+    k = torch.einsum("btd,dhk->bthk", vis, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", vis, p["wv"])
+    return {"k": k, "v": v}

@@ -1,22 +1,27 @@
-"""Model assembly for decoders of GQA attention and Mamba-1 layers
-(PyTorch twin of ``repro.models.model``).
+"""Model assembly for every family of the model zoo (PyTorch twin of
+``repro.models.model``): GQA or MLA attention, Mamba-1 and gated
+cross-attention layers, dense or MoE feed-forward blocks, a dense first
+layer, and token or embedding inputs.
 
 Two serving entry points, with the reference's cache layout
-(``layers[pos][name]``: ``k``/``v`` of shape
-``[n_periods, B, cache_len, KV, hd]`` for attention layers, ``conv``
-``[n_periods, B, d_conv-1, d_inner]`` and ``ssm``
-``[n_periods, B, d_inner, d_state]`` for mamba layers; plus ``pos [B]``):
+(``layers[pos][name]`` with a leading ``n_periods`` axis: ``k``/``v``
+``[n, B, cache_len, KV, hd]`` for attention layers, ``ckv``
+``[n, B, cache_len, kv_lora]`` and ``kr`` ``[n, B, cache_len, rope]`` for
+MLA layers, ``k``/``v`` ``[n, B, vision_tokens, KV, hd]`` for cross
+layers, ``conv`` ``[n, B, d_conv-1, d_inner]`` and ``ssm``
+``[n, B, d_inner, d_state]`` for mamba layers; ``first_layer`` without
+the ``n`` axis; plus ``pos [B]``):
 
-  prefill(params, cfg, tokens, cache_len, cache=None, slot=0)
-      -> (last_logits [B,V], cache)
-  decode_step(params, cfg, cache, tokens) -> (logits [B,V], cache)
+  prefill(params, cfg, tokens, cache_len, cache=None, slot=0,
+          embeds=None, vision=None) -> (last_logits [B,V], cache)
+  decode_step(params, cfg, cache, tokens=None, embeds=None)
+      -> (logits [B,V], cache)
 
 PyTorch runs eagerly, so the stacked layers are walked with a Python loop
 instead of ``lax.scan``.  Caches are updated in place: prefill writes the
-prompt's K/V and SSM states straight into rows ``slot:slot+B`` of a
-caller's cache (the engine's slot insert), where the reference builds a
-padded cache and copies it in.  MLA, MoE and cross-attention raise
-NotImplementedError until a later slice of the port.
+prompt's K/V, latents, vision K/V and SSM states straight into rows
+``slot:slot+B`` of a caller's cache (the engine's slot insert), where the
+reference builds a padded cache and copies it in.
 """
 from __future__ import annotations
 
@@ -29,8 +34,10 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ops
-from repro_torch.models.params import check_supported, torch_dtype
+from repro_torch.models.params import torch_dtype
 
 
 def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -43,37 +50,48 @@ def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"]
 
 
+def _empty_entry(cfg: ModelConfig, kind: str, lead: tuple, batch: int,
+                 cache_len: int, dev) -> Dict[str, torch.Tensor]:
+    """One layer kind's zero cache (int8 caches: zero values, unit
+    scales); ``lead`` is ``(n_periods,)`` or ``()``."""
+    dtype = torch_dtype(cfg.dtype)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + (batch,) + shape, dtype=dt, device=dev)
+    if kind == "mamba":
+        m = cfg.mamba
+        return {"conv": zeros(m.d_conv - 1, m.d_inner),
+                "ssm": zeros(m.d_inner, m.d_state)}
+    if kind == "cross":
+        return {"k": zeros(cfg.vision_tokens, kv, hd),
+                "v": zeros(cfg.vision_tokens, kv, hd)}
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {"ckv": zeros(cache_len, m.kv_lora_rank),
+                "kr": zeros(cache_len, m.qk_rope_head_dim)}
+    if cfg.kv_cache_dtype == "int8":
+        ones = torch.ones(lead + (batch, cache_len, kv),
+                          dtype=torch.bfloat16, device=dev)
+        return {"k": zeros(cache_len, kv, hd, dt=torch.int8),
+                "v": zeros(cache_len, kv, hd, dt=torch.int8),
+                "k_scale": ones, "v_scale": ones.clone()}
+    return {"k": zeros(cache_len, kv, hd), "v": zeros(cache_len, kv, hd)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> Dict[str, Any]:
-    """Zero-filled decode cache (int8 caches: zero values, unit scales)."""
-    check_supported(cfg)
+    """Zero-filled decode cache in the reference's layout."""
     dev = resolve_device(device)
-    n, kv, hd = cfg.n_periods, cfg.n_kv_heads, cfg.head_dim
-    dtype = torch_dtype(cfg.dtype)
-    shape = (n, batch, cache_len, kv, hd)
-    layers = []
-    for pos in range(cfg.period):
-        if cfg.layer_kind(pos) == "mamba":
-            m = cfg.mamba
-            entry = {
-                "conv": torch.zeros((n, batch, m.d_conv - 1, m.d_inner),
-                                    dtype=dtype, device=dev),
-                "ssm": torch.zeros((n, batch, m.d_inner, m.d_state),
-                                   dtype=dtype, device=dev)}
-        elif cfg.kv_cache_dtype == "int8":
-            entry = {
-                "k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "k_scale": torch.ones(shape[:-1], dtype=torch.bfloat16,
-                                      device=dev),
-                "v_scale": torch.ones(shape[:-1], dtype=torch.bfloat16,
-                                      device=dev)}
-        else:
-            entry = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        layers.append(entry)
-    return {"layers": layers,
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    cache: Dict[str, Any] = {
+        "layers": [_empty_entry(cfg, cfg.layer_kind(pos), (cfg.n_periods,),
+                                batch, cache_len, dev)
+                   for pos in range(cfg.period)],
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.dense_first_layer:
+        cache["first_layer"] = _empty_entry(cfg, "attn", (), batch,
+                                            cache_len, dev)
+    return cache
 
 
 def _index(tree, i: int):
@@ -98,31 +116,81 @@ def _mamba(p: Dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
     return y
 
 
-def _run_stack(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, mode: str, cache: Dict,
-               slot: int = 0) -> torch.Tensor:
-    for i in range(cfg.n_periods):
-        for pos in range(cfg.period):
-            p = _index(params["layers"][pos], i)
-            entry = _index(cache["layers"][pos], i)
-            h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            if "mamba" in p:
-                y = _mamba(p["mamba"], cfg, h, mode, entry, slot)
-            elif mode == "prefill":
-                y = attn.self_attention_prefill(p["attn"], cfg, h,
-                                                positions, entry, slot)
-            else:
-                y = attn.self_attention_decode(p["attn"], cfg, h,
-                                               positions, entry)
-            x = x + y
-            if "ln2" in p:
-                h2 = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
-                x = x + ffn_forward(p["ffn"], cfg, h2)
+def _cross(p: Dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
+           entry: Dict, vis: Optional[torch.Tensor], slot: int):
+    """A cross layer's attention: prefill projects the vision K/V once and
+    writes it into rows ``slot:slot+B``; decode reads it back."""
+    if mode == "decode":
+        vis_kv = entry
+    else:
+        if vis is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "vision inputs at prefill")
+        vis_kv = attn.vision_kv(p["attn"], cfg, vis)
+        for name, t in vis_kv.items():
+            entry[name][slot:slot + h.shape[0]] = t
+    return attn.cross_attention(p["attn"], cfg, h, vis_kv)
+
+
+def _gate(y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return y * torch.tanh(g.float()).to(y.dtype)
+
+
+def _layer(p: Dict, cfg: ModelConfig, pos: int, x: torch.Tensor,
+           positions: torch.Tensor, mode: str, entry: Dict,
+           vis: Optional[torch.Tensor], slot: int) -> torch.Tensor:
+    """One layer (the reference's ``_layer``, ``model.py:99-153``),
+    its cache entry updated in place."""
+    kind = cfg.layer_kind(pos)
+    h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        y = _mamba(p["mamba"], cfg, h, mode, entry, slot)
+    elif kind == "cross":
+        y = _gate(_cross(p, cfg, h, mode, entry, vis, slot), p["gate_attn"])
+    elif cfg.attention == "mla":
+        if mode == "prefill":
+            y = mla_mod.mla_prefill(p["attn"], cfg, h, positions, entry,
+                                    slot)
+        else:
+            y = mla_mod.mla_decode(p["attn"], cfg, h, positions, entry)
+    elif mode == "prefill":
+        y = attn.self_attention_prefill(p["attn"], cfg, h, positions,
+                                        entry, slot)
+    else:
+        y = attn.self_attention_decode(p["attn"], cfg, h, positions, entry)
+    x = x + y
+    if "ln2" in p:
+        h2 = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if "moe" in p:
+            y2, _ = moe_mod.moe_layer(p["moe"], cfg, h2)
+        else:
+            y2 = ffn_forward(p["ffn"], cfg, h2)
+        if kind == "cross":
+            y2 = _gate(y2, p["gate_ffn"])
+        x = x + y2
     return x
 
 
-def _embed(params: Dict, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _run_stack(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, mode: str, cache: Dict,
+               vis: Optional[torch.Tensor] = None,
+               slot: int = 0) -> torch.Tensor:
+    """The dense first layer (if any), then the periodic stack."""
+    if cfg.dense_first_layer:
+        x = _layer(params["first_layer"], cfg, 0, x, positions, mode,
+                   cache["first_layer"], vis, slot)
+    for i in range(cfg.n_periods):
+        for pos in range(cfg.period):
+            x = _layer(_index(params["layers"][pos], i), cfg, pos, x,
+                       positions, mode, _index(cache["layers"][pos], i),
+                       vis, slot)
+    return x
+
+
+def _embed(params: Dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+           embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if cfg.input_mode != "tokens":
+        return embeds.to(torch_dtype(cfg.dtype))
     x = params["embed"][tokens]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
@@ -132,46 +200,69 @@ def _embed(params: Dict, cfg: ModelConfig,
 
 def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
     return ops.softcap(logits, cfg.logit_softcap)
 
 
-def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: int = 0, cache: Optional[Dict] = None,
-            slot: int = 0):
-    """Process the prompt tokens [B,S] and write its cache.
+def _cache_len(cfg: ModelConfig, cache: Dict) -> Optional[int]:
+    """The positions a cache holds: read from a self-attention or MLA
+    entry, the first layer's included (a cross entry's length is the
+    image's, and an SSM state takes any prompt); None for a cache with no
+    such entry."""
+    if "first_layer" in cache:
+        e, axis = cache["first_layer"], 1
+    else:
+        kv = [e for pos, e in enumerate(cache["layers"])
+              if cfg.layer_kind(pos) == "attn"]
+        if not kv:
+            return None
+        e, axis = kv[0], 2
+    return e["ckv" if "ckv" in e else "k"].shape[axis]
+
+
+def prefill(params: Dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, cache_len: int = 0,
+            cache: Optional[Dict] = None, slot: int = 0,
+            embeds: Optional[torch.Tensor] = None,
+            vision: Optional[torch.Tensor] = None):
+    """Process the prompt -- tokens [B,S], or ``embeds`` [B,S,d] for
+    ``input_mode="embeddings"`` -- and write its cache; ``vision``
+    [B,Tv,vision_dim] feeds the cross-attention layers.
 
     With ``cache=None`` a fresh cache of ``cache_len`` positions (default
-    ``cfg.max_seq_len``) and batch B is made on the tokens' device;
+    ``cfg.max_seq_len``) and batch B is made on the inputs' device;
     otherwise rows ``slot:slot+B`` of ``cache`` are overwritten in place
     (their ``pos`` included).  Returns (last_token_logits [B,V], cache)."""
-    check_supported(cfg)
-    b, s = tokens.shape
+    x = _embed(params, cfg, tokens, embeds)
+    b, s = x.shape[0], x.shape[1]
     if cache is None:
         cache = init_cache(cfg, b, cache_len or cfg.max_seq_len,
-                           device=tokens.device)
-    # only attention caches have a length; an SSM state takes any prompt
-    lens = [e["k"].shape[2] for e in cache["layers"] if "k" in e]
-    if lens and s > lens[0]:
+                           device=x.device)
+    held = _cache_len(cfg, cache)
+    if held is not None and s > held:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of "
-                         f"{lens[0]}")
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    x = _run_stack(params, cfg, x, positions, "prefill", cache, slot)
+                         f"{held}")
+    vis = None
+    if vision is not None and "vision_proj" in params:
+        vis = vision.to(x.dtype) @ params["vision_proj"]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x = _run_stack(params, cfg, x, positions, "prefill", cache, vis, slot)
     cache["pos"][slot:slot + b] = s
     return _head(params, cfg, x[:, s - 1:])[:, 0], cache
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
-                tokens: torch.Tensor):
-    """One decode step for the whole batch.  tokens [B].  Every row
-    advances, as in the reference's gang decode: ``pos`` grows by one
-    even for rows that serve no request.  Returns (logits [B,V], cache),
-    the cache updated in place."""
-    x = _embed(params, cfg, tokens[:, None])
+                tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None):
+    """One decode step for the whole batch: tokens [B] (or embeds
+    [B,1,d]).  Every row advances, as in the reference's gang decode:
+    ``pos`` grows by one even for rows that serve no request.  Returns
+    (logits [B,V], cache), the cache updated in place."""
+    x = _embed(params, cfg, None if tokens is None else tokens[:, None],
+               embeds)
     positions = cache["pos"]
     x = _run_stack(params, cfg, x, positions, "decode", cache)
     cache["pos"] += 1

@@ -4,7 +4,9 @@ zoo (PyTorch twin of ``repro.models.params``).
 Params are nested dicts of tensors in the reference's layout: layers that
 repeat are stacked with a leading ``n_periods`` dimension (one stacked
 dict per position in the layer period), attention weights are
-``wq [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``.  The same
+``wq [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``, MLA's
+``wq_a/wq_b/wkv_a/wkv_b/wo`` with their two latent norms, routed experts
+``[E,d,f_e]`` / ``[E,f_e,d]`` behind an f32 router ``[d,E]``.  The same
 distributions as the reference (scaled normal weights, zero norms), drawn
 from an explicit ``torch.Generator``; ``jax.random`` streams cannot be
 reproduced in torch, so parity tests carry the reference's parameters in
@@ -21,27 +23,6 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 
-_LATER = ("the PyTorch port so far serves decoders of GQA attention and "
-          "Mamba-1 layers with dense FFNs; {what} comes with a later "
-          "slice of the port")
-
-
-def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for layer kinds not yet ported."""
-    kinds = set(cfg.layer_pattern)
-    if kinds - {"attn", "mamba"}:
-        raise NotImplementedError(_LATER.format(
-            what=f"layer kind(s) {sorted(kinds - {'attn', 'mamba'})} "
-            "(cross-attention)"))
-    if "attn" in kinds and cfg.attention != "gqa":
-        raise NotImplementedError(_LATER.format(
-            what=f"attention {cfg.attention!r} (mla)"))
-    if any(cfg.moe_pattern) or cfg.moe is not None or cfg.dense_first_layer:
-        raise NotImplementedError(_LATER.format(what="moe"))
-    if cfg.input_mode != "tokens" or cfg.vision_tokens:
-        raise NotImplementedError(_LATER.format(
-            what=f"input mode {cfg.input_mode!r} / vision inputs"))
-
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
@@ -52,83 +33,165 @@ def _dense(gen, shape, dtype, device, fan_in=None):
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * scale).to(dtype)
+    # scaled in place: one f32 temporary beside the result, not two
+    return w.mul_(scale).to(dtype)
 
 
-def _init_attn(gen, cfg, n, dtype, device) -> Dict[str, Any]:
+def _zeros(lead, shape, dtype, device):
+    return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+
+def _init_attn(gen, cfg, lead, dtype, device) -> Dict[str, Any]:
+    """GQA projections; ``lead`` is ``(n_periods,)`` for a stacked layer
+    and ``()`` for the dense first layer."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    p = {"wq": _dense(gen, (n, d, h, hd), dtype, device, fan_in=d),
-         "wk": _dense(gen, (n, d, kv, hd), dtype, device, fan_in=d),
-         "wv": _dense(gen, (n, d, kv, hd), dtype, device, fan_in=d),
-         "wo": _dense(gen, (n, h, hd, d), dtype, device, fan_in=h * hd)}
+    p = {"wq": _dense(gen, lead + (d, h, hd), dtype, device, fan_in=d),
+         "wk": _dense(gen, lead + (d, kv, hd), dtype, device, fan_in=d),
+         "wv": _dense(gen, lead + (d, kv, hd), dtype, device, fan_in=d),
+         "wo": _dense(gen, lead + (h, hd, d), dtype, device,
+                      fan_in=h * hd)}
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros((n, hd), dtype=dtype, device=device)
-        p["k_norm"] = torch.zeros((n, hd), dtype=dtype, device=device)
+        p["q_norm"] = _zeros(lead, (hd,), dtype, device)
+        p["k_norm"] = _zeros(lead, (hd,), dtype, device)
     return p
 
 
-def _init_ffn(gen, cfg, n, dtype, device) -> Dict[str, Any]:
-    d, f = cfg.d_model, cfg.d_ff
-    p = {"w_up": _dense(gen, (n, d, f), dtype, device, fan_in=d),
-         "w_down": _dense(gen, (n, f, d), dtype, device, fan_in=f)}
+def _init_mla(gen, cfg, lead, dtype, device) -> Dict[str, Any]:
+    """The reference's ``init_mla`` (``params.py:84-102``)."""
+    d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": _dense(gen, lead + (d, m.q_lora_rank), dtype, device,
+                       fan_in=d),
+        "q_norm_a": _zeros(lead, (m.q_lora_rank,), dtype, device),
+        "wq_b": _dense(gen, lead + (m.q_lora_rank, h, qk), dtype, device,
+                       fan_in=m.q_lora_rank),
+        "wkv_a": _dense(gen, lead + (d, m.kv_lora_rank
+                                     + m.qk_rope_head_dim), dtype, device,
+                        fan_in=d),
+        "kv_norm_a": _zeros(lead, (m.kv_lora_rank,), dtype, device),
+        "wkv_b": _dense(gen, lead + (m.kv_lora_rank, h, m.qk_nope_head_dim
+                                     + m.v_head_dim), dtype, device,
+                        fan_in=m.kv_lora_rank),
+        "wo": _dense(gen, lead + (h, m.v_head_dim, d), dtype, device,
+                     fan_in=h * m.v_head_dim),
+    }
+
+
+def _init_ffn(gen, cfg, lead, dtype, device, d_ff=None) -> Dict[str, Any]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"w_up": _dense(gen, lead + (d, f), dtype, device, fan_in=d),
+         "w_down": _dense(gen, lead + (f, d), dtype, device, fan_in=f)}
     if cfg.gated_mlp:
-        p["w_gate"] = _dense(gen, (n, d, f), dtype, device, fan_in=d)
+        p["w_gate"] = _dense(gen, lead + (d, f), dtype, device, fan_in=d)
     return p
 
 
-def _init_mamba(gen, cfg, n, dtype, device) -> Dict[str, Any]:
+def _init_moe(gen, cfg, lead, dtype, device) -> Dict[str, Any]:
+    """The reference's ``init_moe`` (``params.py:54-72``) without expert
+    parallelism's replicas: routed experts stacked ``[E, d, f_e]`` /
+    ``[E, f_e, d]``, an f32 router ``[d, E]``, and the shared experts as
+    one dense FFN of width ``n_shared * d_expert``."""
+    d, m = cfg.d_model, cfg.moe
+    e, fe = m.n_experts, m.d_expert
+    routed = {"w_up": _dense(gen, lead + (e, d, fe), dtype, device,
+                             fan_in=d),
+              "w_down": _dense(gen, lead + (e, fe, d), dtype, device,
+                               fan_in=fe)}
+    if cfg.gated_mlp:
+        routed["w_gate"] = _dense(gen, lead + (e, d, fe), dtype, device,
+                                  fan_in=d)
+    p = {"router": _dense(gen, lead + (d, e), torch.float32, device,
+                          fan_in=d),
+         "routed": routed}
+    if m.n_shared > 0:
+        p["shared"] = _init_ffn(gen, cfg, lead, dtype, device,
+                                d_ff=m.n_shared * fe)
+    return p
+
+
+def _init_mamba(gen, cfg, lead, dtype, device) -> Dict[str, Any]:
     d, m, dtr = cfg.d_model, cfg.mamba, cfg.dt_rank
     di, ds, dc = m.d_inner, m.d_state, m.d_conv
     a = torch.arange(1, ds + 1, dtype=torch.float32,
                      device=device)[None, :].repeat(di, 1)
     return {
-        "in_proj": _dense(gen, (n, d, 2 * di), dtype, device, fan_in=d),
-        "conv_w": _dense(gen, (n, dc, di), dtype, device, fan_in=dc),
-        "conv_b": torch.zeros((n, di), dtype=dtype, device=device),
-        "x_proj": _dense(gen, (n, di, dtr + 2 * ds), dtype, device,
+        "in_proj": _dense(gen, lead + (d, 2 * di), dtype, device, fan_in=d),
+        "conv_w": _dense(gen, lead + (dc, di), dtype, device, fan_in=dc),
+        "conv_b": _zeros(lead, (di,), dtype, device),
+        "x_proj": _dense(gen, lead + (di, dtr + 2 * ds), dtype, device,
                          fan_in=di),
-        "dt_proj": _dense(gen, (n, dtr, di), dtype, device, fan_in=dtr),
+        "dt_proj": _dense(gen, lead + (dtr, di), dtype, device,
+                          fan_in=dtr),
         # softplus^-1(0.01)
-        "dt_bias": torch.full((n, di), -4.6, dtype=dtype, device=device),
-        "A_log": torch.log(a)[None].repeat(n, 1, 1),
-        "D": torch.ones((n, di), dtype=torch.float32, device=device),
-        "out_proj": _dense(gen, (n, di, d), dtype, device, fan_in=di),
+        "dt_bias": torch.full(lead + (di,), -4.6, dtype=dtype,
+                              device=device),
+        "A_log": torch.log(a).expand(lead + (di, ds)).contiguous(),
+        "D": torch.ones(lead + (di,), dtype=torch.float32, device=device),
+        "out_proj": _dense(gen, lead + (di, d), dtype, device, fan_in=di),
     }
+
+
+def _init_layer(gen, cfg, pos, lead, dtype, device) -> Dict[str, Any]:
+    """One layer kind (the reference's ``init_layer``,
+    ``params.py:123-149``): attention (GQA or MLA), cross-attention with
+    its two scalar gates (zero, as in the reference), or mamba; then a
+    dense FFN, MoE, or nothing (``d_ff == 0`` without MoE: falcon-mamba)."""
+    kind, is_moe = cfg.layer_kind(pos), cfg.layer_is_moe(pos)
+    layer = {"ln1": _zeros(lead, (cfg.d_model,), dtype, device)}
+    if kind == "mamba":
+        layer["mamba"] = _init_mamba(gen, cfg, lead, dtype, device)
+    elif kind == "cross":
+        layer["attn"] = _init_attn(gen, cfg, lead, dtype, device)
+        layer["gate_attn"] = _zeros(lead, (), dtype, device)
+        layer["gate_ffn"] = _zeros(lead, (), dtype, device)
+    elif cfg.attention == "mla":
+        layer["attn"] = _init_mla(gen, cfg, lead, dtype, device)
+    else:
+        layer["attn"] = _init_attn(gen, cfg, lead, dtype, device)
+    if is_moe or cfg.d_ff > 0:
+        layer["ln2"] = _zeros(lead, (cfg.d_model,), dtype, device)
+        if is_moe:
+            layer["moe"] = _init_moe(gen, cfg, lead, dtype, device)
+        else:
+            layer["ffn"] = _init_ffn(gen, cfg, lead, dtype, device)
+    return layer
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Dict[str, Any]:
     """Initialize the full parameter tree on ``device`` (default: the
     card; raises without one unless ``device='cpu'``).  The generator
-    must live on the same device type."""
-    check_supported(cfg)
+    must live on the same device type.  The tree has the reference's
+    keys: ``embed`` for token inputs only, ``vision_proj
+    [vision_dim, d]`` with vision inputs, ``first_layer`` (no
+    ``n_periods`` axis) for a dense first layer, and ``lm_head`` when
+    the embeddings are untied or the inputs are not tokens."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    n = cfg.n_periods
-    params: Dict[str, Any] = {
-        "embed": _dense(generator, (cfg.vocab_size, cfg.d_model), dtype,
-                        dev, fan_in=cfg.d_model)}
-    layers = []
-    for pos in range(cfg.period):
-        layer = {"ln1": torch.zeros((n, cfg.d_model), dtype=dtype,
-                                    device=dev)}
-        if cfg.layer_kind(pos) == "mamba":
-            layer["mamba"] = _init_mamba(generator, cfg, n, dtype, dev)
-        else:
-            layer["attn"] = _init_attn(generator, cfg, n, dtype, dev)
-        # the reference's has_ffn without MoE: pure-SSM configs
-        # (d_ff == 0, falcon-mamba) have no FFN sub-block
-        if cfg.d_ff > 0:
-            layer["ln2"] = torch.zeros((n, cfg.d_model), dtype=dtype,
-                                       device=dev)
-            layer["ffn"] = _init_ffn(generator, cfg, n, dtype, dev)
-        layers.append(layer)
-    params["layers"] = layers
-    params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
-                                       device=dev)
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _dense(generator, (cfg.d_model, cfg.vocab_size),
-                                   dtype, dev)
+    d = cfg.d_model
+    params: Dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        params["embed"] = _dense(generator, (cfg.vocab_size, d), dtype,
+                                 dev, fan_in=d)
+    if cfg.vision_tokens:
+        params["vision_proj"] = _dense(generator, (cfg.vision_dim, d),
+                                       dtype, dev)
+    if cfg.dense_first_layer:
+        attn_init = _init_mla if cfg.attention == "mla" else _init_attn
+        params["first_layer"] = {
+            "ln1": _zeros((), (d,), dtype, dev),
+            "attn": attn_init(generator, cfg, (), dtype, dev),
+            "ln2": _zeros((), (d,), dtype, dev),
+            "ffn": _init_ffn(generator, cfg, (), dtype, dev,
+                             d_ff=cfg.dense_first_d_ff or cfg.d_ff)}
+    params["layers"] = [
+        _init_layer(generator, cfg, pos, (cfg.n_periods,), dtype, dev)
+        for pos in range(cfg.period)]
+    params["final_norm"] = _zeros((), (d,), dtype, dev)
+    if not cfg.tie_embeddings or cfg.input_mode != "tokens":
+        params["lm_head"] = _dense(generator, (d, cfg.vocab_size), dtype,
+                                   dev)
     return params
 
 

@@ -3,10 +3,12 @@
 model, with a virtual clock driven by the calibrated hardware profile.
 
 One ``LLMInstance`` = one model replica.  It owns
-  * a batch-1 prefill written straight into a free slot of the cache,
-    and a gang decode step over every slot (attention and the mamba
-    prefill's selective scan through the hand-written CUDA kernels on
-    the card),
+  * a batch-1 prefill written straight into a free slot of the cache
+    (K/V, MLA latents, the dense first layer's K/V, conv/ssm states),
+    and a gang decode step over every slot (self-attention and the
+    mamba prefill's selective scan through the hand-written CUDA kernels
+    on the card; MLA and MoE in plain PyTorch, as the reference's are
+    plain jnp),
   * a local admission queue ordered by an instance-level scheduler
     (FCFS / bin-packing / least-work-left),
   * a paged-token capacity budget with preemption (newest-first eviction,

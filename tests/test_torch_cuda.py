@@ -637,3 +637,101 @@ def test_cuda_fidelity_engine_leg_equals_cpu(cuda_device, saturate):
     assert card["backends"]["engine"]["completed"] == 12
     if saturate:
         assert card["deltas"]["engine_vs_py"]["preemptions"]["both_preempt"]
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_at_musicgen_heads_match_plain(cuda_device):
+    """musicgen-medium's heads (MHA, H=KV=24, hd=64): bf16 flash across
+    the 64-row q tiles' edges and the bf16 decode mode across its split's
+    edges, each against its plain version at 2e-2."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    for sq in (1, 63, 65, 300, 1500):
+        q, k, v = (_rand(g, cuda_device, torch.bfloat16, 1, sq, 24, 64)
+                   for _ in range(3))
+        torch.testing.assert_close(
+            fa.flash_attention(q, k, v).float(),
+            fa.flash_attention_plain(q, k, v).float(), rtol=2e-2,
+            atol=2e-2)
+    b, s = 8, 2048
+    q = _rand(g, cuda_device, torch.bfloat16, b, 1, 24, 64)
+    k, v = (_rand(g, cuda_device, torch.bfloat16, b, s, 24, 64)
+            for _ in range(2))
+    lens = torch.tensor([0, 1, 64, 65, 513, 1500, s, s + 3],
+                        dtype=torch.int32, device=cuda_device)
+    torch.testing.assert_close(
+        da.decode_attention(q, k, v, lens).float(),
+        da.decode_attention_plain(q, k, v, lens).float(), rtol=2e-2,
+        atol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 512])
+def test_cuda_moe_implementations_agree_at_deepseek_width(cuda_device, t):
+    """deepseek-moe-16b's MoE layer at full width (64 experts of 1408,
+    top-6, 2 shared; bf16, seeded): ``gather``, ``ragged`` and ``dense``
+    route the same rows the same way, so their outputs agree within
+    2e-2 of the largest output."""
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = params_lib._init_moe(gen, cfg, (), torch.bfloat16, cuda_device)
+    x = _rand(gen, cuda_device, torch.bfloat16, t, cfg.d_model)
+    outs = {name: fn(p, cfg, x) for name, fn in moe.IMPLS.items()}
+    ref = outs["dense"][0].float()
+    scale = float(ref.abs().max())
+    assert scale > 0 and bool(torch.isfinite(ref).all())
+    for name, (y, aux) in outs.items():
+        assert y.shape == (t, cfg.d_model) and y.dtype == torch.bfloat16
+        assert float((y.float() - ref).abs().max()) <= 2e-2 * scale, name
+        assert abs(float(aux) - float(outs["dense"][1])) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "minicpm3-4b",
+                                  "jamba-v0.1-52b", "llama-3.2-vision-11b",
+                                  "musicgen-medium"])
+def test_cuda_new_families_match_cpu(cuda_device, arch):
+    """Reduced models of the families added last (head_dim 32 where a
+    kernel runs, cross gates 0.5 / -0.3, seeded vision and frame
+    inputs): prefill + 4 decode steps on the card against the CPU, within
+    1e-3 (``chip_smoke.py`` phase 4's tolerance)."""
+    cfg = get_config(arch).reduced(head_dim=32)
+    p_cpu = params_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    for layer in p_cpu["layers"]:
+        if "gate_attn" in layer:
+            layer["gate_attn"].fill_(0.5)
+            layer["gate_ffn"].fill_(-0.3)
+    p_gpu = params_lib.from_reference(_numpy_tree(p_cpu), device="cuda")
+    g = torch.Generator().manual_seed(1)
+    kw = {}
+    if cfg.input_mode == "tokens":
+        seq = torch.randint(0, cfg.vocab_size, (2, 41), generator=g)
+    else:
+        seq = torch.randn((2, 41, cfg.d_model), generator=g)
+    if cfg.vision_tokens:
+        kw["vision"] = torch.randn((2, cfg.vision_tokens, cfg.vision_dim),
+                                   generator=g)
+
+    def step_kw(t):
+        x = seq[:, t] if cfg.input_mode == "tokens" else seq[:, t:t + 1]
+        return {"tokens" if cfg.input_mode == "tokens" else "embeds": x}
+    first = {"tokens" if cfg.input_mode == "tokens" else "embeds":
+             seq[:, :37]}
+    with torch.no_grad():
+        lc, cc = model_lib.prefill(p_cpu, cfg, cache_len=39, **first, **kw)
+        lg, cg = model_lib.prefill(
+            p_gpu, cfg, cache_len=39,
+            **{k: v.cuda() for k, v in dict(first, **kw).items()})
+        pairs = [(lc, lg)]
+        for t in range(37, 41):
+            lc, cc = model_lib.decode_step(p_cpu, cfg, cc, **step_kw(t))
+            lg, cg = model_lib.decode_step(
+                p_gpu, cfg, cg, **{k: v.cuda()
+                                   for k, v in step_kw(t).items()})
+            pairs.append((lc, lg))
+    for c, gpu in pairs:
+        assert bool(torch.isfinite(gpu).all())
+        torch.testing.assert_close(gpu.cpu(), c, rtol=1e-3, atol=1e-3)
+

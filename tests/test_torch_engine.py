@@ -117,9 +117,14 @@ def _drive(inst, reqs, chaos: bool):
 
 
 def _assert_cache_close(ref, port):
+    """Every cache entry, the dense first layer's included."""
     want = jax.tree.map(np.asarray, ref.cache)
     np.testing.assert_array_equal(port.cache["pos"].numpy(), want["pos"])
-    for e_pt, e_ref in zip(port.cache["layers"], want["layers"]):
+    assert set(port.cache) == set(want)
+    pairs = list(zip(port.cache["layers"], want["layers"]))
+    if "first_layer" in want:
+        pairs.append((port.cache["first_layer"], want["first_layer"]))
+    for e_pt, e_ref in pairs:
         assert set(e_pt) == set(e_ref)
         for name in e_ref:
             np.testing.assert_allclose(e_pt[name].numpy(), e_ref[name],

@@ -43,8 +43,9 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(_port_modules()) > 20
-    assert {"repro_torch.core.calibrate",
-            "repro_torch.serving.fidelity"} <= set(_port_modules())
+    assert {"repro_torch.core.calibrate", "repro_torch.serving.fidelity",
+            "repro_torch.models.moe",
+            "repro_torch.models.mla"} <= set(_port_modules())
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -114,12 +114,25 @@ def test_int8_kv_cache_matches_reference():
 
 
 def test_unported_layer_kinds_raise():
-    # jamba mixes mamba and attention layers, and raises for its MoE
-    for arch in ("jamba-v0.1-52b", "minicpm3-4b", "deepseek-moe-16b",
-                 "llama-3.2-vision-11b"):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="later slice"):
-            pt_model.init_cache(cfg, 1, 8, device="cpu")
+    """Every layer kind now runs through the port's model; what both
+    packages still refuse is an engine over embedding inputs
+    (musicgen-medium), as the reference's ``LLMInstance`` asserts."""
+    from repro.core.profiles import V100_LLAMA2_7B as REF_V100
+    from repro.serving import engine as ref_engine
+    from repro.serving.scheduler import get_scheduler as ref_sched
+    from repro_torch.core.profiles import V100_LLAMA2_7B as PT_V100
+    from repro_torch.serving import engine as pt_engine
+    from repro_torch.serving.scheduler import get_scheduler as pt_sched
+    cfg_ref, cfg_pt = _configs("musicgen-medium")
+    assert cfg_pt.input_mode == "embeddings"
+    pt = pt_params.init_params(cfg_pt, torch.Generator().manual_seed(0),
+                               device="cpu")
+    assert "embed" not in pt and "lm_head" in pt
+    with pytest.raises(AssertionError, match="token inputs"):
+        ref_engine.LLMInstance(cfg_ref, None, REF_V100, ref_sched("fcfs"))
+    with pytest.raises(AssertionError, match="token inputs"):
+        pt_engine.LLMInstance(cfg_pt, pt, PT_V100, pt_sched("fcfs"),
+                              device="cpu")
 
 
 def test_count_params_matches_reference_and_tree():
@@ -127,7 +140,7 @@ def test_count_params_matches_reference_and_tree():
     for arch in REF_REGISTRY:
         cfg = get_config(arch)
         assert pt_params.count_params(cfg) == ref_count(REF_REGISTRY[arch])
-    for arch in ("qwen3-0.6b", "falcon-mamba-7b"):
+    for arch in REF_REGISTRY:
         cfg = get_config(arch).reduced()
         gen = torch.Generator().manual_seed(0)
         tree = pt_params.init_params(cfg, gen, device="cpu")
