@@ -29,7 +29,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      and f32; bf16 flash (Sq 1-1500) and the bf16 decode mode (B=8,
      S=2048, kv_len across the split's edges) at phase 9's MHA heads,
      musicgen-medium's (H=KV=24, hd=64) and deepseek-moe-16b's (H=KV=16,
-     hd=128), 2e-2;
+     hd=128), 2e-2; the two training backwards against their plain
+     versions, each gradient within 2e-2 (bf16) or 1e-4 (f32) of its
+     largest |grad| and a second launch bit-equal: flash (forward with
+     its log-sum-exp, then dq/dk/dv) at qwen3-0.6b's (B=2, S=1024, H=16,
+     KV=8, hd=128), llama-2-7b's (H=KV=32), musicgen-medium's (H=KV=24,
+     hd=64) heads, hd=32, and S in {1, 63, 65, 1000}; the scan (dxc, ddt,
+     db, dc, da_log, dd from the forward's chunk states, a nonzero
+     h_final gradient, random a_log) at falcon-mamba-7b's width (B=1,
+     S=1024, di=8192, ds=16, bf16 xc/b/c, f32 dt) and at reduced f32
+     shapes with S in {1, 31, 33, 1017};
   3. timing with CUDA events (median of 30 runs after warm-up, L2 flushed
      before each run; ``ms`` from the call's enqueue on, ``device_ms``
      with a spin kernel ahead of the start event that keeps the card busy
@@ -40,7 +49,11 @@ Phases, in order; any failure raises and the process exits non-zero:
      dequantization not timed; no single PyTorch call computes a
      selective scan), beside the least time the card could take; flash
      at qwen3-0.6b's prefill shape and at llama-2-7b's, the scan at
-     S=1024 and S=100;
+     S=1024 and S=100; the flash backward at qwen3-0.6b's training shape
+     (B=8, S=1024; library: scaled_dot_product_attention's backward) and
+     the scan backward at falcon-mamba-7b's width, S=1024 (bound: bytes
+     against one exponential a (step, channel, state) on the
+     special-function units);
   4. small reduced models of every family on the card (kernels)
      against the same models on the CPU (plain versions), prefill 37 + 4
      decode steps, logits within 1e-3: qwen3-0.6b, falcon-mamba-7b,
@@ -138,7 +151,24 @@ Phases, in order; any failure raises and the process exits non-zero:
      13.30 B), each check's launch counts asserted (jamba's scan
      included); the error is asserted within 5% of max |logit| for the
      models without routed experts and printed with the top-1
-     agreement for the two with them.
+     agreement for the two with them;
+  10. LM training (phase 9's weights freed first), each part's launch
+     counts read around it: (a) one f32 AdamW train step of phase 4's
+     seven reduced families on the card (the kernels and their
+     backwards) against the CPU from the same parameters and batch:
+     loss within 1e-5, every gradient leaf within 1e-4 of its largest
+     |g|, params after the step within 1e-5; (b) full-width qwen3-0.6b
+     through ``repro_torch.launch.train``'s loop (AdamW lr 1e-3, warmup
+     20, batch 8 x 1024, 30 steps, checkpoints every 10 under
+     ``build/train_ckpt/``), the loss falling, then a second run resumed
+     from the step-20 checkpoint alone whose steps 21-30 and final state
+     are bit-equal to the first's under
+     ``torch.use_deterministic_algorithms``; step wall, tokens/s, peak
+     memory, flash launches a step (56 forward, 28 backward) and one
+     step profiled; (c) full-width falcon-mamba-7b under
+     ``launch.steps.build_train_step(cfg, "adafactor")``, batch 1 x 1024,
+     4 steps on one repeated batch: the loss finite and falling, the
+     scan 128 forward and 64 backward launches a step, peak memory.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -184,6 +214,12 @@ KERNELS = (
     ("decode_attention_int8", DA_SOURCE,
      "src/repro/kernels/decode_attention/kernel.py:98"),
     ("mamba_scan", MS_SOURCE, "src/repro/kernels/mamba_scan/kernel.py:55"),
+    # the training backwards: the gradients of what those TPU kernels
+    # compute, which the reference takes by jax.grad of plain jnp
+    ("flash_attention_bwd", FA_SOURCE,
+     "src/repro/kernels/flash_attention/kernel.py:68"),
+    ("mamba_scan_bwd", MS_SOURCE,
+     "src/repro/kernels/mamba_scan/kernel.py:55"),
 )
 # llama-2-7b's decode attention: n_slots=8, cache 2048, MHA 32 x 128
 LLAMA_DECODE = dict(b=8, s=2048, h=32, kvh=32, hd=128)
@@ -222,6 +258,26 @@ LLAMA_PREFILL = dict(s=1024, h=32, kvh=32, hd=128)
 NEW_HEADS = (("musicgen-medium", 24, 64), ("deepseek-moe-16b", 16, 128))
 FLASH_NEW_SQ = (1, 63, 65, 300, 1500)
 DECODE_NEW_LENS = [0, 1, 64, 65, 513, 1500, 2048, 2051]
+# the flash backward's checks (B, S, H, KV, hd, what): qwen3-0.6b's,
+# llama-2-7b's and musicgen-medium's heads, hd=32, and S across the 64-row
+# tiles' edges at qwen3's heads
+FLASH_BWD_CASES = ((2, 1024, 16, 8, 128, "qwen3-0.6b"),
+                   (1, 1024, 32, 32, 128, "llama-2-7b"),
+                   (1, 1024, 24, 24, 64, "musicgen-medium"),
+                   (2, 300, 8, 4, 32, "hd=32"),
+                   (1, 1, 16, 8, 128, "qwen3-0.6b S=1"),
+                   (1, 63, 16, 8, 128, "qwen3-0.6b S=63"),
+                   (1, 65, 16, 8, 128, "qwen3-0.6b S=65"),
+                   (1, 1000, 16, 8, 128, "qwen3-0.6b S=1000"))
+BWD_TOLS = {"bfloat16": 2e-2, "float32": 1e-4}   # of max |grad|
+# the scan backward at reduced f32 shapes, S ragged against the 64-step
+# chunks of the saved states
+SCAN_BWD_S = (1, 31, 33, 1017)
+# qwen3-0.6b's training shape: the flash backward's timing
+QWEN_TRAIN = dict(b=8, s=1024, h=16, kvh=8, hd=128)
+# exponentials a second on the special-function units: 16 a clock per SM,
+# 132 SMs at the 1.98 GHz boost clock
+SFU_RATE = 16 * 132 * 1.98e9
 
 
 def log(*a):
@@ -230,13 +286,16 @@ def log(*a):
 
 def reset_launches(m):
     m.fa.launches = m.da.launches = m.da.launches_int8 = m.ms.launches = 0
+    m.fa.launches_bwd = m.ms.launches_bwd = 0
 
 
 def read_launches(m) -> dict:
     return {"flash_attention": m.fa.launches,
             "decode_attention": m.da.launches,
             "decode_attention_int8": m.da.launches_int8,
-            "mamba_scan": m.ms.launches}
+            "mamba_scan": m.ms.launches,
+            "flash_attention_bwd": m.fa.launches_bwd,
+            "mamba_scan_bwd": m.ms.launches_bwd}
 
 
 def gpu_line() -> str:
@@ -358,6 +417,75 @@ def check_kernels(torch, fa, da, ms, quantize_kv):
     return errs
 
 
+def check_backwards(torch, fa, ms):
+    """The two hand-written backwards against their plain versions on
+    the same inputs: each gradient within ``BWD_TOLS`` of its own
+    largest |grad| -- for flash floored at a tenth of the largest of
+    dq, dk, dv, since dq and dk are exactly zero at S=1, where every row
+    sees one key -- and a second launch bit-equal to the first.
+    Returns the largest absolute error of each over the bf16 cases."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs = {"flash_attention_bwd": 0.0, "mamba_scan_bwd": 0.0}
+
+    def compare(name, got, want, names, dtype, what, floor=0.0):
+        tol = BWD_TOLS[str(dtype).split(".")[-1]]
+        top = floor * max(float(w.float().abs().max()) for w in want)
+        worst = []
+        for n, x, w in zip(names, got, want):
+            assert x.dtype == w.dtype and x.shape == w.shape, (what, n)
+            err = float((x.float() - w.float()).abs().max())
+            scale = max(float(w.float().abs().max()), top)
+            assert err <= tol * scale, (what, n, err, scale)
+            # a gradient that is exactly zero (da_log at S=1) is zero here
+            worst.append(f"{n} {err / scale if scale else 0.0:.1e}")
+            if dtype == torch.bfloat16:
+                errs[name] = max(errs[name], err)
+        log(f"  {what}: error / max|grad| " + ", ".join(worst)
+            + f" (tol {tol})")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, h, kvh, hd, what in FLASH_BWD_CASES:
+            q, do = (torch.randn((b, s, h, hd), generator=g,
+                                 device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn((b, s, kvh, hd), generator=g,
+                                device=dev).to(dtype) for _ in range(2))
+            o, lse = fa.flash_attention_train_fwd(q, k, v)
+            o_p, lse_p = fa.flash_attention_lse_plain(q, k, v)
+            assert torch.equal(o, fa.flash_attention(q, k, v)), what
+            torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), what
+            compare("flash_attention_bwd", got,
+                    fa.flash_attention_bwd_plain(q, k, v, o, lse_p, do),
+                    ("dq", "dk", "dv"), dtype,
+                    f"flash bwd {str(dtype)[6:]} {what} B={b} S={s} H={h} "
+                    f"KV={kvh} hd={hd}", floor=0.1)
+    fs = FALCON_SCAN
+    cases = [((fs["b"], fs["s"], fs["di"], fs["ds"]), torch.bfloat16)]
+    cases += [((2, s, 128, 8), torch.float32) for s in SCAN_BWD_S]
+    for (b, s, di, ds), act in cases:
+        args = scan_inputs(torch, g, b, s, di, ds, act, random_a=True)
+        dy = torch.randn((b, s, di), generator=g, device=dev).to(act)
+        dh = torch.randn((b, di, ds), generator=g, device=dev)
+        y, hf, hc = ms.mamba_scan_train_fwd(*args)
+        y_s, hf_s = ms.mamba_scan(*args)
+        assert torch.equal(y, y_s) and torch.equal(hf, hf_s)
+        got = ms.mamba_scan_bwd(*args, hc, dy, dh)
+        again = ms.mamba_scan_bwd(*args, hc, dy, dh)
+        assert all(torch.equal(x, z) for x, z in zip(got, again))
+        bf16 = act == torch.bfloat16
+        compare("mamba_scan_bwd", got,
+                ms.mamba_scan_bwd_plain(*args, dy, dh),
+                ("dxc", "ddt", "db", "dc", "da_log", "dd"), act,
+                f"mamba_scan bwd {'bf16 xc/b/c' if bf16 else 'f32'}, f32 "
+                f"dt, B={b} S={s} di={di} ds={ds}, random a_log, dh_final "
+                "!= 0")
+    torch.cuda.synchronize()
+    return errs
+
+
 def scan_inputs(torch, g, b, s, di, ds, act_dtype, random_a=False):
     """Selective-scan inputs as the model passes them: xc, b, c in
     ``act_dtype``, dt in f32 (softplus-positive, ~0.07), a_log and d in
@@ -427,6 +555,90 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_backwards(torch, fa, ms):
+    """Phase 3 for the two backwards: the flash backward at qwen3-0.6b's
+    training shape with ``scaled_dot_product_attention``'s backward on
+    the same inputs as a yardstick (never called by the port), and the
+    scan backward at falcon-mamba-7b's width, S=1024."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+
+    def timed(fn):
+        return (time_ms(torch, fn, flush),
+                time_ms(torch, fn, flush, spin=True))
+
+    qt = QWEN_TRAIN
+    b, s, h, kvh, hd = qt["b"], qt["s"], qt["h"], qt["kvh"], qt["hd"]
+    q, do = (torch.randn((b, s, h, hd), generator=g, device=dev).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, kvh, hd), generator=g, device=dev).to(bf)
+            for _ in range(2))
+    o, lse = fa.flash_attention_train_fwd(q, k, v)
+    ms_, dev_ms = timed(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+    plain = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do), flush)
+    ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = sdpa(torch, ql, kl, vl, is_causal=True)
+    dol = do.transpose(1, 2)
+    lib, lib_dev = timed(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dol, retain_graph=True))
+    del lib_out
+    pairs = s * (s + 1) // 2
+    # S and dP recomputed, dV, dQ, dK: five products of 2 hd FLOPs a
+    # (q, k) pair; q, k, v, o, do read, dq, dk, dv written (bf16), lse
+    # read (f32)
+    b_ms, b_by = bound(5 * 2 * hd * h * pairs * b,
+                       2 * (3 * b * s * h * hd + 2 * b * s * kvh * hd)
+                       + 2 * (b * s * h * hd + 2 * b * s * kvh * hd)
+                       + 4 * b * h * s)
+    out["flash_attention_bwd"] = dict(
+        ms=ms_, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+        library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B={b} S={s} H={h} KV={kvh} hd={hd} bf16 causal (qwen3-0.6b"
+        " training); library = the backward of scaled_dot_product_attention"
+        " on the same inputs")
+    fs = FALCON_SCAN
+    b, s, di, ds = fs["b"], fs["s"], fs["di"], fs["ds"]
+    args = scan_inputs(torch, g, b, s, di, ds, bf)
+    dy = torch.randn((b, s, di), generator=g, device=dev).to(bf)
+    _, _, hc = ms.mamba_scan_train_fwd(*args)
+    ms_, dev_ms = timed(lambda: ms.mamba_scan_bwd(*args, hc, dy, None))
+    plain = time_ms(torch, lambda: ms.mamba_scan_bwd_plain(*args, dy),
+                    flush)
+    # read: bf16 xc, b, c, dy; f32 dt, a_log, d and the chunk states;
+    # written: bf16 dxc, db, dc; f32 ddt, da_log, dd
+    nbytes = (2 * 2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds
+              + 2 * (4 * di * ds + 4 * di) + 4 * hc.numel()
+              + 2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds)
+    t_bytes = nbytes / PEAK_BYTES
+    # the gradient needs exp(dt a) once a (step, channel, state); that
+    # the kernel takes it twice (it recomputes each chunk's states) is
+    # its own cost, not the function's
+    t_sfu = b * s * di * ds / SFU_RATE
+    out["mamba_scan_bwd"] = dict(
+        ms=ms_, device_ms=dev_ms, plain_ms=plain, library_ms=None,
+        library_device_ms=None, bound_ms=max(t_bytes, t_sfu) * 1e3,
+        bound_by="operations" if t_sfu >= t_bytes else "bytes",
+        bytes=nbytes, sfu_ms=t_sfu * 1e3,
+        shape=f"B={b} S={s} di={di} ds={ds}, bf16 xc/b/c/dy, f32 dt; "
+        "operations = 1 exponential a (step, channel, state) on the "
+        "special-function units; no library call computes it")
+    for name, r in out.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms (device "
+               f"{r['library_device_ms']:.4f} ms)")
+        log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    del flush
+    return out
 
 
 def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
@@ -654,7 +866,7 @@ def _tree_numpy(tree):
         return {k: _tree_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tree_numpy(v) for v in tree]
-    return tree.numpy()
+    return tree.detach().numpy()
 
 
 # -- phase 5: serve full-width qwen3-0.6b -------------------------------------
@@ -777,15 +989,15 @@ def timed_engines(torch, m, cfg, params, prof, cache_len, step_s, finite,
 
 
 def profile_pass(torch, run, wall_ms: float, what: str, steps: int = 5,
-                 kernel=None):
+                 kernel=None, grad: bool = False):
     """Device time of a model pass, by kernel, from torch.profiler over
     ``steps`` calls of ``run`` (after one warm call), against a wall time
     ``wall_ms`` of the same pass taken without the profiler (whose own
     start-up makes a wall clock under it useless).  ``kernel`` = (name,
     a substring of its CUDA function's name) reports that kernel's
-    share."""
+    share.  ``grad``: run with autograd on (a train step)."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
+    with torch.set_grad_enabled(grad):
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1723,7 +1935,8 @@ def expect_layers(cfg, launches, prefills, steps):
     dec = ("decode_attention_int8" if cfg.kv_cache_dtype == "int8"
            else "decode_attention")
     want = {"flash_attention": attn * prefills, "decode_attention": 0,
-            "decode_attention_int8": 0, "mamba_scan": mamba * prefills}
+            "decode_attention_int8": 0, "mamba_scan": mamba * prefills,
+            "flash_attention_bwd": 0, "mamba_scan_bwd": 0}
     want[dec] = attn * steps
     assert launches == want, (launches, want)
 
@@ -2178,6 +2391,280 @@ def families_phase(torch, np, m, ckpt_dir):
     return launches, out
 
 
+# -- phase 10: LM training on the card ---------------------------------------
+
+# 10b: the reference launcher's schedule at qwen3-0.6b's full width
+TRAIN_ARGS = dict(steps=30, batch=8, seq=1024, lr=1e-3, ckpt_every=10)
+TRAIN_RESUME_AT = 20
+TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt")
+# 10c: falcon-mamba-7b under Adafactor, one repeated batch
+FALCON_TRAIN = dict(batch=1, seq=1024, steps=4)
+
+
+def _tree_leaves(tree):
+    """{key: leaf} of a tree (``_leaves_with_keys`` order)."""
+    from repro_torch.training.checkpoint import _leaves_with_keys
+    return dict(_leaves_with_keys(tree))
+
+
+def train_reduced(torch, m):
+    """10a: one f32 AdamW train step of phase 4's seven reduced families
+    on the card (kernels and their backwards) against the CPU (autograd
+    of the plain versions), from the same parameters and batch: loss
+    within 1e-5, every grad leaf within 1e-4 of its largest |g|, params
+    after the step within 1e-5.  The step runs at the full lr (3e-4,
+    ``warmup_steps=1``), so it moves each entry by about 3e-4 and the
+    1e-5 bound sees a skipped or wrongly signed update -- except where
+    the CPU's second moment says a gradient never left rounding level
+    (sqrt(nu) < 1e-6), or where the gradient is under twice the 1e-4 of
+    max |g| that the two sides' gradients may part by: Adam moves such
+    an entry by any value in [-lr, lr] on either side (ROADMAP §3), so
+    there the two may part by 2 lr.  Returns the launch counts."""
+    from repro_torch.launch.train import to_device
+    from repro_torch.training import data as data_lib
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    reset_launches(m)
+    for arch, what in REDUCED_ARCHS:
+        over = {} if arch == "falcon-mamba-7b" else {"head_dim": 32}
+        cfg = m.get_config(arch).reduced(**over)
+        p_cpu, o_cpu = init_train_state(
+            cfg, torch.Generator().manual_seed(0), device="cpu")
+        with torch.no_grad():
+            set_cross_gates(p_cpu)
+        p_gpu = m.params_lib.from_reference(_tree_numpy(p_cpu),
+                                            device="cuda")
+        for p in m.params_lib.leaves(p_gpu):
+            p.requires_grad_()
+        o_gpu = opt_lib.init(p_gpu)
+        host = data_lib.synthetic_batch(cfg, 2, 48, seed=0, step=0)
+        out = {}
+        for dev, params, opt in (("cpu", p_cpu, o_cpu),
+                                 ("cuda", p_gpu, o_gpu)):
+            grads = {}
+
+            def keep(tree, grads=grads):
+                grads.update(_tree_leaves(tree))
+                return tree
+            step = make_train_step(
+                cfg, opt_lib.OptimizerConfig(warmup_steps=1),
+                compress_grads=keep)
+            params, opt, met = step(params, opt, to_device(host, dev))
+            out[dev] = (float(met["loss"]), grads, params, opt,
+                        float(met["lr"]))
+        (l_c, g_c, p_c, o_c, lr), (l_g, g_g, p_g, _, lr_g) = (
+            out["cpu"], out["cuda"])
+        assert lr == lr_g and lr > 1e-4, (arch, lr, lr_g)
+        assert abs(l_g - l_c) <= 1e-5 * abs(l_c), (arch, l_g, l_c)
+        g_err = 0.0
+        for key, gc in g_c.items():
+            scale = float(gc.abs().max())
+            err = float((g_g[key].cpu() - gc).abs().max())
+            assert err <= 1e-4 * scale + 1e-12, (arch, key, err, scale)
+            g_err = max(g_err, err / max(scale, 1e-30))
+        p_err, n_unsure = 0.0, 0
+        nu = _tree_leaves(o_c["nu"])
+        gpu = _tree_leaves(p_g)
+        for key, a in _tree_leaves(p_c).items():
+            diff = (gpu[key].detach().cpu() - a.detach()).abs()
+            gc = g_c[key].abs()
+            sure = (nu[key].sqrt() >= 1e-6) & (gc >= 2e-4 * gc.max())
+            n_unsure += int((~sure).sum())
+            if sure.any():
+                p_err = max(p_err, float(diff[sure].max()))
+            # (+ the f32 rounding of an entry near 1)
+            assert float(diff.max()) <= 2 * lr + 1e-6, (arch, key,
+                                                       diff.max())
+        assert p_err <= 1e-5, (arch, p_err)
+        log(f"  train step, reduced {arch} ({what}; f32, lr {lr:.1e}): "
+            f"loss {l_g:.6f} (CPU {l_c:.6f}), grads within {g_err:.1e} "
+            f"of max|g|, params after AdamW within {p_err:.1e} "
+            f"({n_unsure} entries at rounding-level or near-zero "
+            f"gradients within 2 lr)")
+    launches = read_launches(m)
+    assert launches["flash_attention_bwd"] and launches["mamba_scan_bwd"], \
+        launches
+    log(f"  launches (10a): {launches}")
+    return launches
+
+
+def train_qwen3(torch, np, m):
+    """10b: full-width qwen3-0.6b through ``repro_torch.launch.train``'s
+    loop (AdamW lr 1e-3, warmup 20, cosine over 30 steps; batch 8 x 1024;
+    checkpoints every 10 under build/train_ckpt/), then a second run
+    resumed from the step-20 checkpoint alone: steps 21-30 and the final
+    state bit-equal to the first run's, both under
+    ``torch.use_deterministic_algorithms``.  The loss falls (the last 5
+    steps' mean below the first 5's)."""
+    import warnings
+    from repro_torch.launch.train import to_device, train
+    from repro_torch.training import data as data_lib
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import make_train_step
+    cfg = m.get_config("qwen3-0.6b")
+    assert cfg.remat and cfg.n_layers == 28, cfg
+    a = TRAIN_ARGS
+    tokens = a["batch"] * a["seq"]
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    full, part = (os.path.join(TRAIN_CKPT, d) for d in ("full", "resumed"))
+
+    def recorder(rec):
+        def on_step(i, met):
+            torch.cuda.synchronize()
+            rec.append((i, time.perf_counter(), met["loss"].item(),
+                        m.fa.launches, m.fa.launches_bwd))
+        return on_step
+
+    release(torch)
+    reset_launches(m)
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for ckpt, resume in ((full, False), (part, True)):
+                if resume:
+                    os.makedirs(part)
+                    name = f"step_{TRAIN_RESUME_AT:09d}.ckpt"
+                    shutil.copy(os.path.join(full, name), part)
+                    with open(os.path.join(part, "latest"), "w") as f:
+                        f.write(name)
+                rec = []
+                t0 = time.perf_counter()
+                params, opt, start = train(
+                    cfg, a["steps"], a["batch"], a["seq"], lr=a["lr"],
+                    ckpt=ckpt, ckpt_every=a["ckpt_every"], device="cuda",
+                    on_step=recorder(rec), log=lambda x: log("  " + x))
+                runs.append(dict(rec=rec, params=params, opt=opt,
+                                 start=start, t0=t0,
+                                 wall_s=time.perf_counter() - t0))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    peak_gb = release(torch, "qwen3-0.6b training, two runs")
+    launches = read_launches(m)
+    first, second = runs
+    assert first["start"] == 0 and second["start"] == TRAIN_RESUME_AT
+    losses = [r[2] for r in first["rec"]]
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    refused = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                      if "determinis" in str(w.message)})
+    resumed = [r[2] for r in second["rec"]]
+    tail = losses[TRAIN_RESUME_AT:]
+    state_a = _tree_leaves({"params": first["params"], "opt": first["opt"]})
+    state_b = _tree_leaves({"params": second["params"],
+                            "opt": second["opt"]})
+    if not refused:
+        assert resumed == tail, (resumed, tail)
+        for key, x in state_a.items():
+            assert torch.equal(x, state_b[key]), key
+        how = "bit-equal"
+    else:
+        log("  ops without a deterministic CUDA path: "
+            + "; ".join(refused))
+        np.testing.assert_allclose(resumed, tail, rtol=1e-6)
+        for key, x in state_a.items():
+            torch.testing.assert_close(state_b[key], x, rtol=1e-6, atol=0)
+        how = "within 1e-6"
+    # step walls of the first run (host clock, synchronised each step)
+    times = [first["t0"]] + [r[1] for r in first["rec"]]
+    walls = [(t1 - t0) * 1e3 for t0, t1 in zip(times, times[1:])]
+    step_ms = statistics.median(walls[1:])
+    n = len(first["rec"])
+    fa_fwd = first["rec"][-1][3] / n
+    fa_bwd = first["rec"][-1][4] / n
+    log(f"  qwen3-0.6b (28 layers, bf16, remat) trained {n} steps, B=8 x "
+        f"S=1024: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean "
+        f"{np.mean(losses[:5]):.4f}, last 5 {np.mean(losses[-5:]):.4f}); "
+        f"resumed at {TRAIN_RESUME_AT}: steps 21-30 {how}")
+    log(f"  step wall median {step_ms:.1f} ms (first step "
+        f"{walls[0]:.1f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, run "
+        f"{first['wall_s']:.1f} s with checkpoints; peak allocated "
+        f"{peak_gb:.2f} GB; flash launches a step: forward {fa_fwd:.1f} "
+        f"(predicted 56), backward {fa_bwd:.1f} (predicted 28)")
+    run_s = first["wall_s"]
+    # one step profiled (on the first run's state, after the checks)
+    step = make_train_step(cfg, opt_lib.OptimizerConfig(
+        lr=a["lr"], warmup_steps=20, total_steps=a["steps"]))
+    batch = to_device(data_lib.synthetic_batch(cfg, a["batch"], a["seq"],
+                                               0, a["steps"]), "cuda")
+    state = [first["params"], first["opt"]]
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+    prof = profile_pass(torch, run, step_ms, "train step (qwen3-0.6b, "
+                        "B=8 x 1024)", steps=1, grad=True,
+                        kernel=("flash_bwd", "fa_bwd"))
+    del runs, first, second, state, state_a, state_b
+    release(torch)
+    out = dict(losses=losses, resumed_losses=resumed, resume=how,
+               refused_ops=refused, step_wall_ms=step_ms,
+               first_step_ms=walls[0], tokens_per_s=tokens / step_ms * 1e3,
+               peak_gb=peak_gb, flash_fwd_per_step=fa_fwd,
+               flash_bwd_per_step=fa_bwd, run_s=run_s, profile=prof)
+    return launches, out
+
+
+def train_falcon(torch, np, m):
+    """10c: full-width falcon-mamba-7b (64 Mamba-1 layers, bf16, remat)
+    under ``build_train_step(cfg, "adafactor")``, batch 1 x 1024, 4
+    steps on one repeated synthetic batch: the loss finite and falling,
+    the scan kernel 128 forward and 64 backward launches a step."""
+    from repro_torch.launch.steps import adafactor_init, build_train_step
+    from repro_torch.launch.train import to_device
+    from repro_torch.training import data as data_lib
+    cfg = m.get_config("falcon-mamba-7b")
+    ft = FALCON_TRAIN
+    release(torch)
+    params, n_params = init_full_width(torch, m, cfg, "falcon-mamba-7b",
+                                       "Adafactor training")
+    for p in m.params_lib.leaves(params):
+        p.requires_grad_()
+    opt = adafactor_init(params)
+    step = build_train_step(cfg, "adafactor")
+    batch = to_device(data_lib.synthetic_batch(cfg, ft["batch"], ft["seq"],
+                                               0, 0), "cuda")
+    reset_launches(m)
+    losses, walls = [], []
+    for _ in range(ft["steps"]):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(met["loss"].item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(m)
+    peak_gb = release(torch, "falcon-mamba-7b Adafactor training")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    per_fwd = launches["mamba_scan"] / ft["steps"]
+    per_bwd = launches["mamba_scan_bwd"] / ft["steps"]
+    assert (per_fwd, per_bwd) == (128, 64), launches
+    assert peak_gb < 80, peak_gb
+    log(f"  falcon-mamba-7b ({n_params} parameters) Adafactor, B=1 x "
+        f"S=1024, {ft['steps']} steps: loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; step walls " + ", ".join(f"{w:.0f}" for w in walls)
+        + f" ms; peak allocated {peak_gb:.2f} GB; scan launches a step: "
+        f"forward {per_fwd:.0f}, backward {per_bwd:.0f}")
+    del params, opt
+    release(torch)
+    return launches, dict(losses=losses, step_walls_ms=walls,
+                          peak_gb=peak_gb, scan_fwd_per_step=per_fwd,
+                          scan_bwd_per_step=per_bwd)
+
+
+def train_phase(torch, np, m):
+    """Phase 10: (a) reduced families, (b) qwen3-0.6b, (c)
+    falcon-mamba-7b; each part's launch counts read around it."""
+    t_phase = time.perf_counter()
+    launches = {"train_reduced": train_reduced(torch, m)}
+    launches["train_qwen3"], qwen = train_qwen3(torch, np, m)
+    launches["train_falcon"], falcon = train_falcon(torch, np, m)
+    out = dict(qwen3=qwen, falcon=falcon,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  training phase {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def write_json(path, obj):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -2191,6 +2678,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (kernels checked and timed)")
     args = ap.parse_args(argv)
+    # phase 10b runs under torch.use_deterministic_algorithms, under
+    # which cuBLAS needs a fixed workspace; it is read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2241,7 +2731,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
-    log(f"[1/9] environment: {gpu}; torch {torch.__version__}, CUDA "
+    log(f"[1/10] environment: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = build.library_path()
@@ -2252,16 +2742,18 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    log("[2/9] kernels against their plain versions on the card")
+    log("[2/10] kernels against their plain versions on the card")
     errs = check_kernels(torch, fa, da, ms, quantize_kv)
+    errs.update(check_backwards(torch, fa, ms))
 
-    log("[3/9] timing (CUDA events, median of "
+    log("[3/10] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
     kv_rng = np.random.default_rng(2)
     kv_lens = [int(x) for x in kv_rng.integers(100, 1025, 7)] + [1100]
     kv_lens_int8 = [int(x) for x in kv_rng.integers(100, 2049, 7)] + [2100]
     times = time_kernels(torch, fa, da, ms, quantize_kv, prompt_len=512,
                          kv_lens=kv_lens, kv_lens_int8=kv_lens_int8)
+    times.update(time_backwards(torch, fa, ms))
     if args.kernels_only:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1-3 of "
             f"the port in {SRC})")
@@ -2270,7 +2762,7 @@ def main(argv=None) -> int:
                                    "max_abs_err": errs, "times": times})
         return 0
 
-    log("[4/9] reduced models: card (kernels) against CPU (plain)")
+    log("[4/10] reduced models: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
 
     mods = argparse.Namespace(
@@ -2288,31 +2780,31 @@ def main(argv=None) -> int:
         Gateway=Gateway, GatewayConfig=GatewayConfig,
         OracleLength=OracleLength, sim=sim, legacy=legacy, cal=cal,
         fid=fid, moe=moe_mod, model_lib=model_lib)
-    log("[5/9] serve full-width qwen3-0.6b through serve_engine")
+    log("[5/10] serve full-width qwen3-0.6b through serve_engine")
     launches, served, qwen = serve(torch, np, mods)
     torch.cuda.empty_cache()
 
-    log("[5b/9] the router's learning path: predictor and DQN router "
+    log("[5b/10] the router's learning path: predictor and DQN router "
         "trained on the card, checkpointed, serving the simulator")
     router_launches, router, ckpt_dir = router_phase(torch, np, mods)
 
-    log("[5c/9] the router's scale-up on the card: batched training over "
+    log("[5c/10] the router's scale-up on the card: batched training over "
         "py and vec, the heterogeneous stream, online learning under "
         "drift")
     scale_launches, scale_up = scale_up_phase(torch, np, mods)
 
-    log("[6/9] the gateway over full-width llama-2-7b (int8 KV cache) "
+    log("[6/10] the gateway over full-width llama-2-7b (int8 KV cache) "
         "through serve_gateway, policies rl (restored) and mixing")
     gw_launches, gateway, llama = gateway_phase(torch, np, mods, ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[7/9] the gateway over full-width falcon-mamba-7b through "
+    log("[7/10] the gateway over full-width falcon-mamba-7b through "
         "serve_gateway, policy rl (restored)")
     mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods,
                                                         ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[8/9] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
+    log("[8/10] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
         "calibrated on the card, sim-vs-engine fidelity on both profiles, "
         "the saturating stream")
     loop_launches, loop = loop_phase(torch, mods, qwen, llama, served,
@@ -2320,15 +2812,20 @@ def main(argv=None) -> int:
     del qwen, llama
     release(torch)
 
-    log("[9/9] the MoE and MLA families behind the gateway at full width "
+    log("[9/10] the MoE and MLA families behind the gateway at full width "
         "(deepseek-moe-16b, minicpm3-4b; rl restored), every family "
         "model-level at full width")
     fam_launches, families = families_phase(torch, np, mods, ckpt_dir)
+
+    log("[10/10] LM training on the card: reduced families against the "
+        "CPU, full-width qwen3-0.6b through launch.train (30 steps, "
+        "resumed at 20), full-width falcon-mamba-7b under Adafactor")
+    train_launches, training = train_phase(torch, np, mods)
     # each path's own counts (reset before it, read after it): phase 5's
     # serve_engine, phase 5b's router path, phase 5c's three parts, phase
     # 6's gateway under each policy, phase 7's, phase 8's two sweeps and
     # three fidelity runs, phase 9's gateway runs, MoE check and five
-    # decode checks
+    # decode checks, phase 10's three training parts
     by_path = {"serve_engine": launches,
                "router": router_launches,
                "batched": scale_launches["batched"],
@@ -2337,8 +2834,8 @@ def main(argv=None) -> int:
                "gateway_rl": gw_launches["rl"],
                "gateway_mixing": gw_launches["mixing"],
                "gateway_mamba_rl": mamba_launches["rl"],
-               **loop_launches, **fam_launches}
-    log(f"  launches per serving path: {by_path}")
+               **loop_launches, **fam_launches, **train_launches}
+    log(f"  launches per path: {by_path}")
 
     kernels = []
     for name, source, rep in KERNELS:
@@ -2379,7 +2876,8 @@ def main(argv=None) -> int:
                                "scale_up": scale_up,
                                "gateway": gateway,
                                "gateway_mamba": mamba_gateway,
-                               "loop": loop, "families": families})
+                               "loop": loop, "families": families,
+                               "training": training})
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -34,6 +34,13 @@ SIGNATURES = {
     # q, k, v, o, B, Sq, Skv, H, KV, hd, dtype, causal, q_offset, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P),
+    # q, k, v, o, lse, B, Sq, Skv, H, KV, hd, dtype, causal, q_offset,
+    # stream
+    "repro_flash_attention_fwd_lse": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, lse, do, dsum, dq, dk, dv, B, S, H, KV, hd, dtype, stream
+    "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, kv_len, o, B, S, H, KV, hd, dtype, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P),
@@ -44,6 +51,14 @@ SIGNATURES = {
     # stream
     "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P),
+    # the same, with h_chunks after h_final
+    "repro_mamba_scan_fwd_states": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P),
+    # xc, dt, b, c, a_log, d, dy, h_chunks, dh_final, dxc, ddt, db, dc,
+    # da_log, dd, scratch, B, S, di, ds, xc/dt/b/c dtype, stream
+    "repro_mamba_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
 }
 
 

@@ -1,7 +1,8 @@
 // Causal GQA FlashAttention-2 forward for Hopper (sm_90a), plain C ABI.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py
-//   flash_attention_kernel (body _fa_kernel), the Pallas TPU kernel.
+//   flash_attention_kernel (body _fa_kernel), the Pallas TPU kernel; and,
+//   for training, its gradient (the backward section below).
 //
 // What it computes: q [B,Sq,H,hd], k/v [B,Skv,KV,hd] (row-major,
 // contiguous) -> o [B,Sq,H,hd] in q's dtype.  q-head h reads kv-head
@@ -44,6 +45,10 @@
 // f32 (its output is bf16 all the same).  wgmma, TMA and warp
 // specialisation are the next redesign.
 //
+// With kLse (training) both forwards also write the row log-sum-exp of the
+// scaled scores, lse [B, H, Sq] f32, which the backward recomputes P from;
+// the serving instantiations (kLse false) are the code they were.
+//
 // fa_fwd (f32 only): an f32 product on the tensor cores would be TF32
 // (about 3 digits), so f32 stays on the CUDA cores: one block per (b,
 // q-head, 16-row q tile); K/V tiles of 32 keys are staged once in shared
@@ -78,11 +83,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
     fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
-           int h, int kvh, int causal, int q_offset, float sm_scale) {
+           int h, int kvh, int causal, int q_offset, float sm_scale,
+           float* __restrict__ lse) {
   constexpr int E = HD / 32;  // output columns per lane: d = lane + 32*i
   __shared__ float qs[kBlockQ][HD];
   __shared__ float ks[kBlockK][HD + 1];
@@ -181,6 +187,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int i = 0; i < E; ++i)
       ob[qp * q_stride + lane + 32 * i] = acc[r][i] * inv;
+    if constexpr (kLse) {
+      if (lane == 0) lse[((long)b * h + hi) * sq + qp] = m[r] + logf(l[r]);
+    }
   }
 }
 
@@ -190,6 +199,7 @@ constexpr int kTcWarps = 4;
 constexpr int kTcBlockQ = 16 * kTcWarps;  // 64 query rows, 16 per warp
 constexpr int kTcBlockK = 64;             // keys per K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // element offset of 16-byte chunk `chunk` of row `row` in a [rows][HD]
 // bf16 tile, XOR-swizzled so that one chunk of 8 consecutive rows (what
@@ -256,13 +266,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Fragment layouts of mma m16n8k16 (g = lane / 4, t = lane % 4): A holds
 // rows g and g+8, columns 2t, 2t+1 and 2t+8, 2t+9; B columns n = g, rows
 // (k) 2t, 2t+1 and 2t+8, 2t+9; C rows g and g+8, columns 2t, 2t+1.
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kTcWarps * 32)
     fa_fwd_tc(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, int sq, int skv, int h, int kvh,
-              int causal, int q_offset, float scale_log2) {
+              int causal, int q_offset, float scale_log2,
+              float* __restrict__ lse) {
   constexpr int CPR = HD / 8;              // 16-byte chunks a row
   constexpr int KSTEPS = HD / 16;          // k-steps of Q K^T
   constexpr int NT = kTcBlockK / 8;        // 8-key column tiles of S
@@ -438,6 +449,11 @@ __global__ void __launch_bounds__(kTcWarps * 32)
     const float inv = 1.f / fmaxf(lt, 1e-20f);
     const int qp = q0 + warp * 16 + g + hr * 8;
     if (qp >= sq) continue;
+    if constexpr (kLse) {
+      // natural log: the scores here are in base 2 (scaled by log2 e)
+      if (t4 == 0)
+        lse[((long)b * h + hi) * sq + qp] = (m[hr] + log2f(lt)) * kLn2;
+    }
     __nv_bfloat16* orow = ob + (long)qp * q_stride + 2 * t4;
 #pragma unroll
     for (int d = 0; d < DT; ++d)
@@ -447,50 +463,677 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   }
 }
 
+// -- backward (training): FlashAttention-2's split ----------------------------
+//
+// Replaces the gradient of src/repro/models/attention.py's causal attention
+// (gqa_core, or gqa_blocked above 1024 rows), which the reference takes by
+// jax.grad of plain jnp: its Pallas kernel has no VJP.  Training calls
+// attention with causal = 1, q_offset = 0 and Sq = Skv = S only, so these
+// kernels take exactly that.  With P = softmax(scale * Q K^T) (causal) and
+// lse the forward's row log-sum-exp of the scaled scores (fa_fwd_tc / fa_fwd
+// with kLse), dO the output's gradient:
+//   D  = rowsum(dO * O)                 fa_bwd_dot, f32 [B, H, S]
+//   dS = P * (dO V^T - D)
+//   dQ = scale * dS K                   fa_bwd_dq*:  a block a (b, q-head,
+//                                       q tile), keys up to the diagonal
+//   dK = scale * dS^T Q, dV = P^T dO    fa_bwd_dkv*: a block a (b, kv-head,
+//                                       key tile), summing the G q-heads of
+//                                       its group and every q tile from the
+//                                       diagonal on inside the block
+// No atomics: each output element is written by one thread, its sums taken
+// in a fixed order, so a step's gradients are bit-equal from run to run.
+// P is recomputed from lse (exp2 of the base-2 scores), never stored.
+//
+// bf16 (fa_bwd_dq_tc, fa_bwd_dkv_tc): mma.sync m16n8k16 with f32
+// accumulation and fa_fwd_tc's fragments, swizzled tiles and cp.async
+// loads.  dQ: a warp holds 16 query rows; S = Q K^T and dP = dO V^T come
+// from the same k-steps, dS is packed to bf16 A-fragments and multiplied by
+// K through ldmatrix.trans (P V's pattern in the forward).  dK/dV: a warp
+// holds 16 key rows; S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+// dK += dS^T Q with P^T and dS^T packed to bf16 (32 queries a pass, so the
+// f32 accumulators of dK and dV -- 2 x 64 registers at hd 128 -- leave room
+// for the scores).  P and dS are rounded to bf16 before their products, as
+// in FlashAttention-2.  f32 (fa_bwd_dq, fa_bwd_dkv): fa_fwd's layout on the
+// CUDA cores, full f32.
+//
+// What bounds it on this card: the five S x S products (S, dP recomputed in
+// both kernels, dQ, dK, dV) are about 5 * S^2 * H * hd * B FLOPs under the
+// causal mask (2 FLOPs a multiply-add, half of the square), so the bf16
+// tensor-core rate.  This first version is simple: one K/V (or Q/dO) stage
+// at a time in the dK/dV kernel, S recomputed in both kernels, no wgmma.
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// D[b, hi, i] = sum_d dO[b, i, hi, d] * O[b, i, hi, d]; one warp a row
+template <typename T>
+__global__ void __launch_bounds__(256)
+    fa_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
+               float* __restrict__ dsum, int s, int h, int hd, long rows) {
+  const long row = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // the whole warp
+  const T* orow = o + row * hd;
+  const T* drow = dout + row * hd;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32)
+    acc += to_f32(orow[d]) * to_f32(drow[d]);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int hi = (int)(row % h);  // row = (b * s + i) * h + hi
+    const long bi = row / h;
+    const int i = (int)(bi % s);
+    const long b = bi / s;
+    dsum[(b * h + hi) * s + i] = acc;
+  }
+}
+
 template <int HD>
+__global__ void __launch_bounds__(kTcWarps * 32)
+    fa_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ dsum,
+                 __nv_bfloat16* __restrict__ dq, int s, int h, int kvh,
+                 float scale_log2, float scale) {
+  constexpr int CPR = HD / 8;
+  constexpr int KSTEPS = HD / 16;
+  constexpr int NT = kTcBlockK / 8;
+  constexpr int DT = HD / 8;
+  constexpr int TILE = kTcBlockK * HD;
+  extern __shared__ __align__(128) unsigned char fa_dq_smem[];
+  __nv_bfloat16* sq_tile = reinterpret_cast<__nv_bfloat16*>(fa_dq_smem);
+  __nv_bfloat16* sdo = sq_tile + kTcBlockQ * HD;  // [64][HD]
+  __nv_bfloat16* sk = sdo + kTcBlockQ * HD;       // [2 stages][64][HD]
+  __nv_bfloat16* sv = sk + 2 * TILE;              // [2 stages][64][HD]
+
+  const int n_qt = (s + kTcBlockQ - 1) / kTcBlockQ;
+  const int n_bh = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - (int)blockIdx.x / n_bh;  // heaviest first
+  const int bh = (int)blockIdx.x % n_bh;
+  const int hi = bh % h, b = bh / h;
+  const int kh = hi / (h / kvh);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = qt * kTcBlockQ;
+
+  const long q_stride = (long)h * HD;
+  const long kv_stride = (long)kvh * HD;
+  const long q_base = (long)b * s * q_stride + (long)hi * HD;
+  const __nv_bfloat16* qb = q + q_base;
+  const __nv_bfloat16* dob = dout + q_base;
+  const __nv_bfloat16* kb = k + (long)b * s * kv_stride + (long)kh * HD;
+  const __nv_bfloat16* vb = v + (long)b * s * kv_stride + (long)kh * HD;
+  const int last_q = min(q0 + kTcBlockQ, s) - 1;
+  const int n_tiles = (last_q + kTcBlockK) / kTcBlockK;  // keys <= last_q
+
+  for (int c = tid; c < kTcBlockQ * CPR; c += kTcWarps * 32) {
+    const int r = c / CPR, ch = c % CPR;
+    const bool ok = q0 + r < s;
+    const long off = ok ? (long)(q0 + r) * q_stride + ch * 8 : 0;
+    cp_async16(smem_u32(sq_tile + tile_off<HD>(r, ch)), qb + off, ok);
+    cp_async16(smem_u32(sdo + tile_off<HD>(r, ch)), dob + off, ok);
+  }
+  auto load_kv = [&](int t, int stage) {
+    for (int c = tid; c < kTcBlockK * CPR; c += kTcWarps * 32) {
+      const int r = c / CPR, ch = c % CPR, key = t * kTcBlockK + r;
+      const bool ok = key < s;
+      const long off = ok ? (long)key * kv_stride + ch * 8 : 0;
+      const int so = stage * TILE + tile_off<HD>(r, ch);
+      cp_async16(smem_u32(sk + so), kb + off, ok);
+      cp_async16(smem_u32(sv + so), vb + off, ok);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();  // group 0: Q, dO and tile 0
+
+  float lse2[2], dr[2];  // rows g and g+8 of the warp's 16
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qp = q0 + warp * 16 + g + hr * 8;
+    const long at = ((long)b * h + hi) * s + qp;
+    lse2[hr] = qp < s ? lse[at] * kLog2e : 0.f;
+    dr[hr] = qp < s ? dsum[at] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* tk = sk + stage * TILE;
+    const __nv_bfloat16* tv = sv + stage * TILE;
+
+    // S = Q K^T and dP = dO V^T over the same k-steps
+    float sc[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4], da[4];
+      const int a_off = tile_off<HD>(a_row, 2 * kk + (lane >> 4));
+      ldsm_x4(smem_u32(sq_tile + a_off), qa);
+      ldsm_x4(smem_u32(sdo + a_off), da);
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        uint32_t bk[4], bv[4];
+        const int b_off = tile_off<HD>(16 * jj + (lane & 7) + (lane >> 4) * 8,
+                                       2 * kk + ((lane >> 3) & 1));
+        ldsm_x4(smem_u32(tk + b_off), bk);
+        ldsm_x4(smem_u32(tv + b_off), bv);
+        mma_bf16(sc[2 * jj], qa, bk[0], bk[1]);
+        mma_bf16(sc[2 * jj + 1], qa, bk[2], bk[3]);
+        mma_bf16(dp[2 * jj], da, bv[0], bv[1]);
+        mma_bf16(dp[2 * jj + 1], da, bv[2], bv[3]);
+      }
+    }
+    // dS = P * (dP - D) in place of S
+    const int k0 = t * kTcBlockK;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int qp = q0 + warp * 16 + g + hr * 8;
+        const float p = (key <= qp && qp < s)
+                            ? exp2f(sc[j][e] * scale_log2 - lse2[hr])
+                            : 0.f;
+        sc[j][e] = p * (dp[j][e] - dr[hr]);
+      }
+    // dQ += dS K: dS's accumulator fragments are the A fragments
+#pragma unroll
+    for (int kk = 0; kk < kTcBlockK / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int p = 0; p < DT / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_trans(smem_u32(tk + tile_off<HD>(
+                          16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8,
+                          2 * p + (lane >> 4))),
+                      bf);
+        mma_bf16(acc[2 * p], pa, bf[0], bf[1]);
+        mma_bf16(acc[2 * p + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  __nv_bfloat16* dqb = dq + q_base;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qp = q0 + warp * 16 + g + hr * 8;
+    if (qp >= s) continue;
+    __nv_bfloat16* row = dqb + (long)qp * q_stride + 2 * t4;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * d) =
+          __floats2bfloat162_rn(acc[d][2 * hr] * scale,
+                                acc[d][2 * hr + 1] * scale);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcWarps * 32)
+    fa_bwd_dkv_tc(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dsum,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int s, int h, int kvh,
+                  float scale_log2, float scale) {
+  constexpr int CPR = HD / 8;
+  constexpr int KSTEPS = HD / 16;
+  constexpr int DT = HD / 8;
+  constexpr int kPass = 32;        // queries a pass of the products
+  constexpr int NQ = kPass / 8;    // 8-query column tiles of S^T
+  constexpr int TILE = kTcBlockK * HD;
+  extern __shared__ __align__(128) unsigned char fa_dkv_smem[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(fa_dkv_smem);
+  __nv_bfloat16* sv = sk + TILE;        // [64][HD]
+  __nv_bfloat16* sq_tile = sv + TILE;   // [64][HD]
+  __nv_bfloat16* sdo = sq_tile + TILE;  // [64][HD]
+  float* lse_s = reinterpret_cast<float*>(sdo + TILE);  // [64], base 2
+  float* d_s = lse_s + kTcBlockQ;                       // [64]
+
+  const int n_kt = (s + kTcBlockK - 1) / kTcBlockK;
+  const int n_bk = gridDim.x / n_kt;  // B * KV
+  const int kt = (int)blockIdx.x / n_bk;  // the first key tiles see most
+  const int bk = (int)blockIdx.x % n_bk;
+  const int kh = bk % kvh, b = bk / kvh;
+  const int grp = h / kvh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = kt * kTcBlockK;
+
+  const long q_stride = (long)h * HD;
+  const long kv_stride = (long)kvh * HD;
+  const long kv_base = (long)b * s * kv_stride + (long)kh * HD;
+  for (int c = tid; c < kTcBlockK * CPR; c += kTcWarps * 32) {
+    const int r = c / CPR, ch = c % CPR;
+    const bool ok = k0 + r < s;
+    const long off = ok ? (long)(k0 + r) * kv_stride + ch * 8 : 0;
+    cp_async16(smem_u32(sk + tile_off<HD>(r, ch)), k + kv_base + off, ok);
+    cp_async16(smem_u32(sv + tile_off<HD>(r, ch)), v + kv_base + off, ok);
+  }
+  cp_async_commit();
+
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+
+  const int n_qt = (s + kTcBlockQ - 1) / kTcBlockQ;
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  for (int gi = 0; gi < grp; ++gi) {
+    const int hi = kh * grp + gi;
+    const long q_base = (long)b * s * q_stride + (long)hi * HD;
+    const long row_base = ((long)b * h + hi) * s;
+    // q tiles are as tall as key tiles: the ones before kt are masked
+    for (int qt = kt; qt < n_qt; ++qt) {
+      const int q0 = qt * kTcBlockQ;
+      __syncthreads();  // the previous Q/dO tile is consumed
+      for (int c = tid; c < kTcBlockQ * CPR; c += kTcWarps * 32) {
+        const int r = c / CPR, ch = c % CPR;
+        const bool ok = q0 + r < s;
+        const long off = ok ? (long)(q0 + r) * q_stride + ch * 8 : 0;
+        cp_async16(smem_u32(sq_tile + tile_off<HD>(r, ch)),
+                   q + q_base + off, ok);
+        cp_async16(smem_u32(sdo + tile_off<HD>(r, ch)),
+                   dout + q_base + off, ok);
+      }
+      cp_async_commit();
+      if (tid < kTcBlockQ) {
+        const bool ok = q0 + tid < s;
+        lse_s[tid] = ok ? lse[row_base + q0 + tid] * kLog2e : 0.f;
+        d_s[tid] = ok ? dsum[row_base + q0 + tid] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+#pragma unroll 1
+      for (int r0 = 0; r0 < kTcBlockQ; r0 += kPass) {
+        // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
+        float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          uint32_t ka[4], va[4];
+          const int a_off = tile_off<HD>(a_row, 2 * kk + (lane >> 4));
+          ldsm_x4(smem_u32(sk + a_off), ka);
+          ldsm_x4(smem_u32(sv + a_off), va);
+#pragma unroll
+          for (int jj = 0; jj < NQ / 2; ++jj) {
+            uint32_t bq[4], bd[4];
+            const int b_off =
+                tile_off<HD>(r0 + 16 * jj + (lane & 7) + (lane >> 4) * 8,
+                             2 * kk + ((lane >> 3) & 1));
+            ldsm_x4(smem_u32(sq_tile + b_off), bq);
+            ldsm_x4(smem_u32(sdo + b_off), bd);
+            mma_bf16(st[2 * jj], ka, bq[0], bq[1]);
+            mma_bf16(st[2 * jj + 1], ka, bq[2], bq[3]);
+            mma_bf16(dpt[2 * jj], va, bd[0], bd[1]);
+            mma_bf16(dpt[2 * jj + 1], va, bd[2], bd[3]);
+          }
+        }
+        // P^T in st, dS^T in dpt
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + warp * 16 + g + (e >> 1) * 8;
+            const int ql = r0 + 8 * j + 2 * t4 + (e & 1);
+            const int qp = q0 + ql;
+            const float p = (key <= qp && qp < s)
+                                ? exp2f(st[j][e] * scale_log2 - lse_s[ql])
+                                : 0.f;
+            st[j][e] = p;
+            dpt[j][e] = p * (dpt[j][e] - d_s[ql]);
+          }
+        // dV += P^T dO and dK += dS^T Q over the pass's queries
+#pragma unroll
+        for (int kq = 0; kq < kPass / 16; ++kq) {
+          const uint32_t pa[4] = {
+              pack_bf16(st[2 * kq][0], st[2 * kq][1]),
+              pack_bf16(st[2 * kq][2], st[2 * kq][3]),
+              pack_bf16(st[2 * kq + 1][0], st[2 * kq + 1][1]),
+              pack_bf16(st[2 * kq + 1][2], st[2 * kq + 1][3])};
+          const uint32_t sa[4] = {
+              pack_bf16(dpt[2 * kq][0], dpt[2 * kq][1]),
+              pack_bf16(dpt[2 * kq][2], dpt[2 * kq][3]),
+              pack_bf16(dpt[2 * kq + 1][0], dpt[2 * kq + 1][1]),
+              pack_bf16(dpt[2 * kq + 1][2], dpt[2 * kq + 1][3])};
+#pragma unroll
+          for (int p = 0; p < DT / 2; ++p) {
+            const int t_off = tile_off<HD>(
+                r0 + 16 * kq + (lane & 7) + ((lane >> 3) & 1) * 8,
+                2 * p + (lane >> 4));
+            uint32_t bd[4], bq[4];
+            ldsm_x4_trans(smem_u32(sdo + t_off), bd);
+            mma_bf16(dva[2 * p], pa, bd[0], bd[1]);
+            mma_bf16(dva[2 * p + 1], pa, bd[2], bd[3]);
+            ldsm_x4_trans(smem_u32(sq_tile + t_off), bq);
+            mma_bf16(dka[2 * p], sa, bq[0], bq[1]);
+            mma_bf16(dka[2 * p + 1], sa, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + warp * 16 + g + hr * 8;
+    if (key >= s) continue;
+    const long at = kv_base + (long)key * kv_stride + 2 * t4;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * d) =
+          __floats2bfloat162_rn(dka[d][2 * hr] * scale,
+                                dka[d][2 * hr + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * d) =
+          __floats2bfloat162_rn(dva[d][2 * hr], dva[d][2 * hr + 1]);
+    }
+  }
+}
+
+// f32 dQ on the CUDA cores: fa_fwd's blocks (b, q-head, 16-row q tile), 4
+// rows a warp, lane j on key t0 + j of a 32-key tile
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+    fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ dsum,
+              float* __restrict__ dq, int s, int h, int kvh, float scale) {
+  constexpr int E = HD / 32;
+  constexpr int KP = HD + 1;  // padded rows: lane j reads row j
+  extern __shared__ float fa_dq_f32_smem[];
+  float* qs = fa_dq_f32_smem;          // [16][HD]
+  float* dos = qs + kBlockQ * HD;      // [16][HD]
+  float* ks = dos + kBlockQ * HD;      // [32][HD + 1]
+  float* vs = ks + kBlockK * KP;       // [32][HD + 1]
+
+  const int n_qt = (s + kBlockQ - 1) / kBlockQ;
+  int bid = blockIdx.x;
+  const int qt = bid % n_qt;
+  bid /= n_qt;
+  const int hi = bid % h;
+  const int b = bid / h;
+  const int kh = hi / (h / kvh);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = qt * kBlockQ;
+  const long q_stride = (long)h * HD;
+  const long kv_stride = (long)kvh * HD;
+  const long q_base = (long)b * s * q_stride + (long)hi * HD;
+  const float* kb = k + (long)b * s * kv_stride + (long)kh * HD;
+  const float* vb = v + (long)b * s * kv_stride + (long)kh * HD;
+
+  for (int e = tid; e < kBlockQ * HD; e += kWarps * 32) {
+    const int r = e / HD, d = e % HD, qp = q0 + r;
+    const bool ok = qp < s;
+    qs[e] = ok ? q[q_base + qp * q_stride + d] : 0.f;
+    dos[e] = ok ? dout[q_base + qp * q_stride + d] : 0.f;
+  }
+  float lr[kRows], dr[kRows], acc[kRows][E];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + warp * kRows + r;
+    const long at = ((long)b * h + hi) * s + qp;
+    lr[r] = qp < s ? lse[at] : 0.f;
+    dr[r] = qp < s ? dsum[at] : 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) acc[r][i] = 0.f;
+  }
+  const int kv_end = min(q0 + kBlockQ, s);  // keys <= the tile's last row
+  for (int t0 = 0; t0 < kv_end; t0 += kBlockK) {
+    __syncthreads();
+    for (int e = tid; e < kBlockK * HD; e += kWarps * 32) {
+      const int j = e / HD, d = e % HD, key = t0 + j;
+      const bool ok = key < s;
+      ks[j * KP + d] = ok ? kb[key * kv_stride + d] : 0.f;
+      vs[j * KP + d] = ok ? vb[key * kv_stride + d] : 0.f;
+    }
+    __syncthreads();
+    float sc[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {
+      const float kd = ks[lane * KP + d], vd = vs[lane * KP + d];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        sc[r] += qs[(warp * kRows + r) * HD + d] * kd;
+        dp[r] += dos[(warp * kRows + r) * HD + d] * vd;
+      }
+    }
+    const int key = t0 + lane;
+    float ds[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qp = q0 + warp * kRows + r;
+      const float p =
+          (key <= qp && qp < s) ? expf(sc[r] * scale - lr[r]) : 0.f;
+      ds[r] = p * (dp[r] - dr[r]);
+    }
+#pragma unroll 4
+    for (int j = 0; j < kBlockK; ++j) {
+      float kj[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) kj[i] = ks[j * KP + lane + 32 * i];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float dsj = __shfl_sync(kFull, ds[r], j);
+#pragma unroll
+        for (int i = 0; i < E; ++i) acc[r][i] += dsj * kj[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + warp * kRows + r;
+    if (qp >= s) continue;
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      dq[q_base + qp * q_stride + lane + 32 * i] = acc[r][i] * scale;
+  }
+}
+
+// f32 dK/dV on the CUDA cores: a block a (b, kv-head, 16-key tile), 4 keys
+// a warp, lane j on query q0 + j of a 32-query tile, the group's q-heads
+// summed inside the block
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+    fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ dsum,
+               float* __restrict__ dk, float* __restrict__ dv, int s, int h,
+               int kvh, float scale) {
+  constexpr int E = HD / 32;
+  constexpr int QP = HD + 1;
+  constexpr int kKeys = kWarps * kRows;  // 16 keys a block
+  extern __shared__ float fa_dkv_f32_smem[];
+  float* ks = fa_dkv_f32_smem;      // [16][HD]
+  float* vs = ks + kKeys * HD;      // [16][HD]
+  float* qs = vs + kKeys * HD;      // [32][HD + 1]
+  float* dos = qs + kBlockK * QP;   // [32][HD + 1]
+
+  const int n_kt = (s + kKeys - 1) / kKeys;
+  const int n_bk = gridDim.x / n_kt;
+  const int kt = (int)blockIdx.x / n_bk;
+  const int bk = (int)blockIdx.x % n_bk;
+  const int kh = bk % kvh, b = bk / kvh;
+  const int grp = h / kvh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = kt * kKeys;
+  const long q_stride = (long)h * HD;
+  const long kv_stride = (long)kvh * HD;
+  const long kv_base = (long)b * s * kv_stride + (long)kh * HD;
+
+  for (int e = tid; e < kKeys * HD; e += kWarps * 32) {
+    const int r = e / HD, d = e % HD, key = k0 + r;
+    const bool ok = key < s;
+    ks[e] = ok ? k[kv_base + key * kv_stride + d] : 0.f;
+    vs[e] = ok ? v[kv_base + key * kv_stride + d] : 0.f;
+  }
+  float ak[kRows][E], av[kRows][E];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int i = 0; i < E; ++i) ak[r][i] = av[r][i] = 0.f;
+
+  for (int gi = 0; gi < grp; ++gi) {
+    const int hi = kh * grp + gi;
+    const long q_base = (long)b * s * q_stride + (long)hi * HD;
+    const long row_base = ((long)b * h + hi) * s;
+    for (int q0 = (k0 / kBlockK) * kBlockK; q0 < s; q0 += kBlockK) {
+      __syncthreads();
+      for (int e = tid; e < kBlockK * HD; e += kWarps * 32) {
+        const int j = e / HD, d = e % HD, qp = q0 + j;
+        const bool ok = qp < s;
+        qs[j * QP + d] = ok ? q[q_base + qp * q_stride + d] : 0.f;
+        dos[j * QP + d] = ok ? dout[q_base + qp * q_stride + d] : 0.f;
+      }
+      __syncthreads();
+      const int qp = q0 + lane;
+      const float lj = qp < s ? lse[row_base + qp] : 0.f;
+      const float dj = qp < s ? dsum[row_base + qp] : 0.f;
+      float sc[kRows], dp[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) {
+        const float qd = qs[lane * QP + d], dd = dos[lane * QP + d];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          sc[r] += ks[(warp * kRows + r) * HD + d] * qd;
+          dp[r] += vs[(warp * kRows + r) * HD + d] * dd;
+        }
+      }
+      float p[kRows], ds[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int key = k0 + warp * kRows + r;
+        p[r] = (key <= qp && qp < s) ? expf(sc[r] * scale - lj) : 0.f;
+        ds[r] = p[r] * (dp[r] - dj);
+      }
+#pragma unroll 4
+      for (int j = 0; j < kBlockK; ++j) {
+        float qj[E], doj[E];
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          qj[i] = qs[j * QP + lane + 32 * i];
+          doj[i] = dos[j * QP + lane + 32 * i];
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float pj = __shfl_sync(kFull, p[r], j);
+          const float dsj = __shfl_sync(kFull, ds[r], j);
+#pragma unroll
+          for (int i = 0; i < E; ++i) {
+            av[r][i] += pj * doj[i];
+            ak[r][i] += dsj * qj[i];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int key = k0 + warp * kRows + r;
+    if (key >= s) continue;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const long at = kv_base + key * kv_stride + lane + 32 * i;
+      dk[at] = ak[r][i] * scale;
+      dv[at] = av[r][i];
+    }
+  }
+}
+
+// -- launchers ----------------------------------------------------------------
+
+template <int HD, bool kLse>
 cudaError_t launch_tc_hd(const __nv_bfloat16* q, const __nv_bfloat16* k,
                          const __nv_bfloat16* v, __nv_bfloat16* o, int b,
                          int sq, int skv, int h, int kvh, int causal,
-                         int q_offset, cudaStream_t stream) {
+                         int q_offset, float* lse, cudaStream_t stream) {
   constexpr int smem = (kTcBlockQ + 4 * kTcBlockK) * HD * 2;  // Q + 2x K,V
   // per launch: the limit is per device, and a failure is not cached
   const cudaError_t attr = cudaFuncSetAttribute(
-      fa_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_fwd_tc<HD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return attr;
   const int n_qt = (sq + kTcBlockQ - 1) / kTcBlockQ;
   const dim3 grid((unsigned)((long)b * h * n_qt)), block(kTcWarps * 32);
-  fa_fwd_tc<HD><<<grid, block, smem, stream>>>(
+  fa_fwd_tc<HD, kLse><<<grid, block, smem, stream>>>(
       q, k, v, o, sq, skv, h, kvh, causal, q_offset,
-      kLog2e / sqrtf((float)HD));
+      kLog2e / sqrtf((float)HD), lse);
   return cudaGetLastError();
 }
 
+template <bool kLse>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int b, int sq, int skv, int h, int kvh, int hd,
-                      int causal, int q_offset, cudaStream_t stream) {
+                      int causal, int q_offset, float* lse,
+                      cudaStream_t stream) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   switch (hd) {
     case 32:
-      return launch_tc_hd<32>(qp, kp, vp, op, b, sq, skv, h, kvh, causal,
-                              q_offset, stream);
+      return launch_tc_hd<32, kLse>(qp, kp, vp, op, b, sq, skv, h, kvh,
+                                    causal, q_offset, lse, stream);
     case 64:
-      return launch_tc_hd<64>(qp, kp, vp, op, b, sq, skv, h, kvh, causal,
-                              q_offset, stream);
+      return launch_tc_hd<64, kLse>(qp, kp, vp, op, b, sq, skv, h, kvh,
+                                    causal, q_offset, lse, stream);
     case 128:
-      return launch_tc_hd<128>(qp, kp, vp, op, b, sq, skv, h, kvh, causal,
-                               q_offset, stream);
+      return launch_tc_hd<128, kLse>(qp, kp, vp, op, b, sq, skv, h, kvh,
+                                     causal, q_offset, lse, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // f32 on the CUDA cores
+template <bool kLse>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int b, int sq, int skv, int h, int kvh, int hd,
-                       int causal, int q_offset, cudaStream_t stream) {
+                       int causal, int q_offset, float* lse,
+                       cudaStream_t stream) {
   const int n_qt = (sq + kBlockQ - 1) / kBlockQ;
   const dim3 grid((unsigned)((long)b * h * n_qt));
   const dim3 block(kWarps * 32);
@@ -501,21 +1144,122 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   float* op = static_cast<float*>(o);
   switch (hd) {
     case 32:
-      fa_fwd<32><<<grid, block, 0, stream>>>(qp, kp, vp, op, sq, skv, h, kvh,
-                                             causal, q_offset, scale);
+      fa_fwd<32, kLse><<<grid, block, 0, stream>>>(
+          qp, kp, vp, op, sq, skv, h, kvh, causal, q_offset, scale, lse);
       break;
     case 64:
-      fa_fwd<64><<<grid, block, 0, stream>>>(qp, kp, vp, op, sq, skv, h, kvh,
-                                             causal, q_offset, scale);
+      fa_fwd<64, kLse><<<grid, block, 0, stream>>>(
+          qp, kp, vp, op, sq, skv, h, kvh, causal, q_offset, scale, lse);
       break;
     case 128:
-      fa_fwd<128><<<grid, block, 0, stream>>>(qp, kp, vp, op, sq, skv, h,
-                                              kvh, causal, q_offset, scale);
+      fa_fwd<128, kLse><<<grid, block, 0, stream>>>(
+          qp, kp, vp, op, sq, skv, h, kvh, causal, q_offset, scale, lse);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_tc_hd(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* dsum, void* dq, void* dk, void* dv,
+                             int b, int s, int h, int kvh,
+                             cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int smem_dq = (2 * kTcBlockQ + 4 * kTcBlockK) * HD * 2;
+  constexpr int smem_dkv = 4 * kTcBlockK * HD * 2 + 2 * kTcBlockQ * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dq_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_dq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dkv_tc<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkv);
+  if (err != cudaSuccess) return err;
+  const float scale = 1.f / sqrtf((float)HD);
+  const int n_qt = (s + kTcBlockQ - 1) / kTcBlockQ;
+  const int n_kt = (s + kTcBlockK - 1) / kTcBlockK;
+  fa_bwd_dq_tc<HD><<<(unsigned)((long)b * h * n_qt), kTcWarps * 32, smem_dq,
+                     stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dsum,
+      static_cast<bf*>(dq), s, h, kvh, scale * kLog2e, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fa_bwd_dkv_tc<HD><<<(unsigned)((long)n_kt * b * kvh), kTcWarps * 32,
+                      smem_dkv, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dsum,
+      static_cast<bf*>(dk), static_cast<bf*>(dv), s, h, kvh, scale * kLog2e,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_f32_hd(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* dsum, void* dq, void* dk, void* dv,
+                              int b, int s, int h, int kvh,
+                              cudaStream_t stream) {
+  constexpr int smem_dq = (2 * kBlockQ * HD + 2 * kBlockK * (HD + 1)) * 4;
+  constexpr int smem_dkv =
+      (2 * kWarps * kRows * HD + 2 * kBlockK * (HD + 1)) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dkv<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkv);
+  if (err != cudaSuccess) return err;
+  const float scale = 1.f / sqrtf((float)HD);
+  const int n_qt = (s + kBlockQ - 1) / kBlockQ;
+  const int n_kt = (s + kWarps * kRows - 1) / (kWarps * kRows);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  fa_bwd_dq<HD><<<(unsigned)((long)b * h * n_qt), kWarps * 32, smem_dq,
+                  stream>>>(qp, kp, vp, dop, lse, dsum,
+                            static_cast<float*>(dq), s, h, kvh, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fa_bwd_dkv<HD><<<(unsigned)((long)n_kt * b * kvh), kWarps * 32, smem_dkv,
+                   stream>>>(qp, kp, vp, dop, lse, dsum,
+                             static_cast<float*>(dk),
+                             static_cast<float*>(dv), s, h, kvh, scale);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* dsum,
+                       void* dq, void* dk, void* dv, int b, int s, int h,
+                       int kvh, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return kBf16 ? launch_bwd_tc_hd<32>(q, k, v, dout, lse, dsum, dq, dk,
+                                          dv, b, s, h, kvh, stream)
+                   : launch_bwd_f32_hd<32>(q, k, v, dout, lse, dsum, dq, dk,
+                                           dv, b, s, h, kvh, stream);
+    case 64:
+      return kBf16 ? launch_bwd_tc_hd<64>(q, k, v, dout, lse, dsum, dq, dk,
+                                          dv, b, s, h, kvh, stream)
+                   : launch_bwd_f32_hd<64>(q, k, v, dout, lse, dsum, dq, dk,
+                                           dv, b, s, h, kvh, stream);
+    case 128:
+      return kBf16 ? launch_bwd_tc_hd<128>(q, k, v, dout, lse, dsum, dq, dk,
+                                           dv, b, s, h, kvh, stream)
+                   : launch_bwd_f32_hd<128>(q, k, v, dout, lse, dsum, dq, dk,
+                                            dv, b, s, h, kvh, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+bool bad_shape(int b, int sq, int skv, int h, int kvh) {
+  return b <= 0 || sq <= 0 || skv <= 0 || kvh <= 0 || h % kvh != 0;
 }
 
 }  // namespace
@@ -527,14 +1271,68 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int skv, int h, int kvh, int hd,
                                      int dtype, int causal, int q_offset,
                                      void* stream) {
-  if (b <= 0 || sq <= 0 || skv <= 0 || kvh <= 0 || h % kvh != 0)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(b, sq, skv, h, kvh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_f32(q, k, v, o, b, sq, skv, h, kvh, hd, causal,
-                           q_offset, s);
+    return (int)launch_f32<false>(q, k, v, o, b, sq, skv, h, kvh, hd, causal,
+                                  q_offset, nullptr, s);
   if (dtype == 1)
-    return (int)launch_tc(q, k, v, o, b, sq, skv, h, kvh, hd, causal,
-                          q_offset, s);
+    return (int)launch_tc<false>(q, k, v, o, b, sq, skv, h, kvh, hd, causal,
+                                 q_offset, nullptr, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The training forward: the same kernels, also writing the row log-sum-exp
+// of the scaled scores, lse [B, H, Sq] f32 (natural log).
+extern "C" int repro_flash_attention_fwd_lse(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse, int b, int sq,
+                                             int skv, int h, int kvh, int hd,
+                                             int dtype, int causal,
+                                             int q_offset, void* stream) {
+  if (bad_shape(b, sq, skv, h, kvh)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0)
+    return (int)launch_f32<true>(q, k, v, o, b, sq, skv, h, kvh, hd, causal,
+                                 q_offset, l, s);
+  if (dtype == 1)
+    return (int)launch_tc<true>(q, k, v, o, b, sq, skv, h, kvh, hd, causal,
+                                q_offset, l, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of causal attention with q_offset 0 and Sq = Skv = s: dsum
+// is f32 scratch [B, H, s]; dq, dk, dv in q's dtype.  Three launches
+// (fa_bwd_dot, then dQ, then dK/dV) on one stream.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
+                                         const void* v, const void* o,
+                                         const void* lse, const void* dout,
+                                         void* dsum, void* dq, void* dk,
+                                         void* dv, int b, int s, int h,
+                                         int kvh, int hd, int dtype,
+                                         void* stream) {
+  if (bad_shape(b, s, s, h, kvh) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long rows = (long)b * s * h;
+  const unsigned blocks = (unsigned)((rows + 7) / 8);
+  float* ds = static_cast<float*>(dsum);
+  const float* l = static_cast<const float*>(lse);
+  if (dtype == 1) {
+    fa_bwd_dot<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(dout), ds, s, h, hd, rows);
+  } else {
+    fa_bwd_dot<float><<<blocks, 256, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), ds,
+        s, h, hd, rows);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (dtype == 1)
+    return (int)launch_bwd<true>(q, k, v, dout, l, ds, dq, dk, dv, b, s, h,
+                                 kvh, hd, st);
+  return (int)launch_bwd<false>(q, k, v, dout, l, ds, dq, dk, dv, b, s, h,
+                                kvh, hd, st);
 }

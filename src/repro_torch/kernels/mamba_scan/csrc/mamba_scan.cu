@@ -1,7 +1,9 @@
 // Mamba-1 selective scan for Hopper (sm_90a), plain C ABI.
 //
 // Replaces: src/repro/kernels/mamba_scan/kernel.py mamba_scan_kernel (body
-//   _scan_kernel), the Pallas TPU kernel.
+//   _scan_kernel), the Pallas TPU kernel; and, for training, its gradient
+//   (scan_bwd below; the forward's kStates flag saves the chunk states it
+//   starts from).
 //
 // What it computes: xc, dt [B,S,di]; b, c [B,S,ds]; a_log [di,ds] f32;
 // d [di] f32 (all row-major, contiguous) -> y [B,S,di] in xc's dtype and
@@ -62,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -250,13 +254,16 @@ __device__ __forceinline__ void group(float* xs, const float* dts,
   for (int j = 0; j < kOwn; ++j) xs[(t0 + sub * kOwn + j) * kCh + lc] = p[j];
 }
 
-template <int DS>
+// kStates (training): also write the state entering each chunk, h_chunks
+// [B, ceil(S / kChunk), di, ds] f32, which scan_bwd recomputes from
+template <int DS, bool kStates>
 __global__ void __launch_bounds__(kThreads, 1)
     scan_fwd(const void* __restrict__ xc, const void* __restrict__ dt,
              const void* __restrict__ bm, const void* __restrict__ cm,
              const float* __restrict__ a_log, const float* __restrict__ dd,
              void* __restrict__ y, float* __restrict__ h_final, int s,
-             int di, bool x_bf16, bool dt_bf16, bool b_bf16, bool c_bf16) {
+             int di, bool x_bf16, bool dt_bf16, bool b_bf16, bool c_bf16,
+             float* __restrict__ h_chunks) {
   constexpr int NS = DS / kLanes;  // states per lane
   constexpr int kBuf = 2 * kChunk * kCh + 2 * kChunk * DS;  // floats
   extern __shared__ __align__(16) float smem[];
@@ -324,6 +331,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < n_chunks; ++i) {
     const int t0 = i * kChunk, steps = min(kChunk, s - t0);
     float* cur = smem + (i % kStages) * kBuf;
+    if constexpr (kStates) {
+      if (valid) {
+        float* hc = h_chunks + (((long)bi * n_chunks + i) * di + ch) * DS + n0;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) hc[j] = h[j];
+      }
+    }
     cp_async_wait<kStages - 2>();  // this thread's pieces of chunk i
     __syncthreads();  // everyone's pieces; chunk i-1's y has been stored
     // chunks i+1 .. i+kStages-1 in flight during the sweep
@@ -375,23 +389,312 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+
+// -- backward (training) ------------------------------------------------------
+//
+// Replaces the gradient of src/repro/models/mamba.py's selective_scan, which
+// the reference takes by jax.grad of plain jnp (its Pallas kernel has no
+// VJP).  With g_t = dL/dh_t (per channel, state), e_t = exp(dt_t a) and
+// dh_final the gradient of h_final as the starting condition, the reverse
+// recursion is
+//   g_t   = g_{t+1} e_{t+1} + dy_t c_t            (g_{S-1} = dh_final + ...)
+//   dc_t  = sum_di dy_t h_t       db_t = sum_di g_t dt_t x_t
+//   dx_t  = dt_t sum_ds g_t b_t + d dy_t
+//   ddt_t = x_t sum_ds g_t b_t + sum_ds g_t h_{t-1} e_t a
+//   da    = sum_{B,S} g_t h_{t-1} e_t dt_t,  da_log = da * a  (a = -exp(a_log))
+//   dd    = sum_{B,S} dy_t x_t
+// scan_bwd: a block of 256 threads holds 256 / ds channels of one sequence,
+// one thread a (channel, state).  It walks the chunks of kChunk steps from
+// the last to the first; for each it stages x, dt, dy, b and c (as f32) in
+// shared memory, recomputes the chunk's kChunk states in registers from the
+// state scan_fwd<kStates> wrote on entering it -- with the forward's own
+// ex2.approx and fmaf, so they are the forward's states -- then sweeps the
+// chunk in reverse, taking the second exponential of a step there.  Sums
+// over ds are shuffles inside the channel's ds lanes; dx and ddt of the
+// chunk are stored coalesced.  db and dc (sums over di) are reduced over a
+// warp's channels by shuffles, over the block's warps in shared memory, and
+// written as one partial a block; da and dd (sums over B and S) stay in
+// registers over the sweep and are written as one partial a sequence.
+// scan_bwd_reduce then sums the partials in a fixed order: no atomics, and
+// the gradients are bit-equal from run to run.
+//
+// What bounds it on this card: the inputs read once and dx, ddt, db, dc
+// written once (plus the chunk states) -- 117 MB at falcon-mamba-7b's
+// B=1, S=1024, di=8192 with bf16 x/b/c/dy and f32 dt, 0.035 ms at 3.35
+// TB/s.  The gradient needs exp(dt a) once a (step, channel, state):
+// 134,217,728 on the special-function units, 0.032 ms at 16 a clock per
+// SM, 1.98 GHz, 132 SMs, so the bound is the bytes.  This first version
+// takes each exponential twice (once recomputing the chunk's states, once
+// in the reverse sweep), the staging does not overlap the sweep, and the
+// partials of db and dc (B * di / 16 * S * 16 floats each) go through
+// device memory.
+
+constexpr int kBwdThreads = 256;  // ops.py's BWD_THREADS reads this
+
+__device__ __forceinline__ float ld_f(const void* p, long i, bool bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st_f(void* p, long i, bool bf16, float x) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
+  else
+    static_cast<float*>(p)[i] = x;
+}
+
 template <int DS>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    scan_bwd(const void* __restrict__ xc, const void* __restrict__ dt,
+             const void* __restrict__ bm, const void* __restrict__ cm,
+             const float* __restrict__ a_log, const float* __restrict__ dd,
+             const void* __restrict__ dy, const float* __restrict__ h_chunks,
+             const float* __restrict__ dh_final, void* __restrict__ dxc,
+             void* __restrict__ ddt, float* __restrict__ db_part,
+             float* __restrict__ dc_part, float* __restrict__ da_part,
+             float* __restrict__ dd_part, int s, int di, bool x_bf16,
+             bool dt_bf16, bool b_bf16, bool c_bf16) {
+  constexpr int kCh = kBwdThreads / DS;  // channels a block
+  constexpr int kWarpsB = kBwdThreads / 32;
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* xs = bwd_smem;              // [kChunk][kCh]
+  float* dts = xs + kChunk * kCh;    // [kChunk][kCh]
+  float* dys = dts + kChunk * kCh;   // [kChunk][kCh]
+  float* dxs = dys + kChunk * kCh;   // [kChunk][kCh]
+  float* ddts = dxs + kChunk * kCh;  // [kChunk][kCh]
+  float* bs = ddts + kChunk * kCh;   // [kChunk][DS]
+  float* cs = bs + kChunk * DS;      // [kChunk][DS]
+  float* wb = cs + kChunk * DS;      // [warps][kChunk][DS]
+  float* wc = wb + kWarpsB * kChunk * DS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cl = tid / DS, n = tid % DS;
+  const int bi = blockIdx.y, c0 = blockIdx.x * kCh, ch = c0 + cl;
+  const bool valid = ch < di;  // the ragged channel edge
+  const int n_chunks = (s + kChunk - 1) / kChunk;
+  const long row0 = (long)bi * s;
+  const float a = valid ? -expf(a_log[(long)ch * DS + n]) : 0.f;
+  const float a2 = a * kLog2e;  // the forward's exponent factor
+  const float dch = valid ? dd[ch] : 0.f;
+  float g = valid && dh_final != nullptr
+                ? dh_final[((long)bi * di + ch) * DS + n]
+                : 0.f;
+  float da_acc = 0.f, dd_acc = 0.f;
+
+  for (int i = n_chunks - 1; i >= 0; --i) {
+    const int t0 = i * kChunk, steps = min(kChunk, s - t0);
+    __syncthreads();  // the previous chunk's buffers are consumed
+    for (int e = tid; e < kChunk * kCh; e += kBwdThreads) {
+      const int u = e / kCh, c = e % kCh;
+      const bool ok = u < steps && c0 + c < di;
+      const long at = (row0 + t0 + u) * di + c0 + c;
+      xs[e] = ok ? ld_f(xc, at, x_bf16) : 0.f;
+      dts[e] = ok ? ld_f(dt, at, dt_bf16) : 0.f;
+      dys[e] = ok ? ld_f(dy, at, x_bf16) : 0.f;
+    }
+    for (int e = tid; e < kChunk * DS; e += kBwdThreads) {
+      const bool ok = e / DS < steps;
+      const long at = (row0 + t0) * DS + e;
+      bs[e] = ok ? ld_f(bm, at, b_bf16) : 0.f;
+      cs[e] = ok ? ld_f(cm, at, c_bf16) : 0.f;
+    }
+    __syncthreads();
+    // the chunk's states as the forward computed them; steps past S have
+    // dt = 0 (a factor of exactly 1) and x = 0, so they leave h unchanged
+    const float h_in =
+        valid ? h_chunks[(((long)bi * n_chunks + i) * di + ch) * DS + n]
+              : 0.f;
+    float hist[kChunk];
+    float hc = h_in;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const float x = xs[u * kCh + cl], dtt = dts[u * kCh + cl];
+      const float dtx = dtt * x;
+      hc = fmaf(ex2(dtt * a2), hc, dtx * bs[u * DS + n]);
+      hist[u] = hc;
+    }
+    // the reverse sweep; g becomes dL/dh_t of step u
+#pragma unroll
+    for (int u = kChunk - 1; u >= 0; --u) {
+      const float x = xs[u * kCh + cl], dtt = dts[u * kCh + cl];
+      const float dyv = dys[u * kCh + cl];
+      const float hprev = u > 0 ? hist[u - 1] : h_in;
+      g = fmaf(dyv, cs[u * DS + n], g);
+      float gb = g * (dtt * x);  // -> db over the channels
+      float gc = dyv * hist[u];  // -> dc over the channels
+      const float e = ex2(dtt * a2);
+      const float de = g * hprev * e;
+      float q1 = g * bs[u * DS + n];  // -> d(dt x) over the states
+      float q2 = de * a;              // -> ddt through the decay
+      da_acc = fmaf(de, dtt, da_acc);
+      g *= e;
+#pragma unroll
+      for (int off = DS / 2; off >= 1; off >>= 1) {
+        q1 += __shfl_xor_sync(kFull, q1, off);
+        q2 += __shfl_xor_sync(kFull, q2, off);
+      }
+#pragma unroll
+      for (int off = DS; off < 32; off <<= 1) {
+        gb += __shfl_xor_sync(kFull, gb, off);
+        gc += __shfl_xor_sync(kFull, gc, off);
+      }
+      if (n == 0) {
+        dxs[u * kCh + cl] = fmaf(q1, dtt, dyv * dch);
+        ddts[u * kCh + cl] = fmaf(q1, x, q2);
+        dd_acc = fmaf(dyv, x, dd_acc);
+      }
+      if (lane < DS) {  // the warp's first channel holds the warp's sums
+        wb[(warp * kChunk + u) * DS + n] = gb;
+        wc[(warp * kChunk + u) * DS + n] = gc;
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < kChunk * kCh; e += kBwdThreads) {
+      const int u = e / kCh, c = e % kCh;
+      if (u < steps && c0 + c < di) {
+        const long at = (row0 + t0 + u) * di + c0 + c;
+        st_f(dxc, at, x_bf16, dxs[e]);
+        st_f(ddt, at, dt_bf16, ddts[e]);
+      }
+    }
+    for (int e = tid; e < kChunk * DS; e += kBwdThreads) {
+      if (e / DS >= steps) continue;
+      float sb = 0.f, sc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarpsB; ++w) {
+        sb += wb[w * kChunk * DS + e];
+        sc += wc[w * kChunk * DS + e];
+      }
+      const long at =
+          (((long)bi * gridDim.x + blockIdx.x) * s + t0) * DS + e;
+      db_part[at] = sb;
+      dc_part[at] = sc;
+    }
+  }
+  if (valid) {
+    da_part[((long)bi * di + ch) * DS + n] = da_acc;
+    if (n == 0) dd_part[(long)bi * di + ch] = dd_acc;
+  }
+}
+
+// The second pass: db, dc [B, S, DS] summed over the blocks' partials, and
+// da_log [di, DS], dd [di] over the sequences', each in a fixed order.
+template <int DS>
+__global__ void __launch_bounds__(256)
+    scan_bwd_reduce(const float* __restrict__ db_part,
+                    const float* __restrict__ dc_part,
+                    const float* __restrict__ da_part,
+                    const float* __restrict__ dd_part,
+                    const float* __restrict__ a_log, void* __restrict__ db,
+                    void* __restrict__ dc, float* __restrict__ da_log,
+                    float* __restrict__ dd_out, int bsz, int s, int di,
+                    int nblk, bool b_bf16, bool c_bf16) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long per_seq = (long)s * DS;
+  if (idx < bsz * per_seq) {
+    const long bi = idx / per_seq, rest = idx % per_seq;
+    const long base = bi * nblk * per_seq + rest;
+    float sb = 0.f, sc = 0.f;
+    for (int k = 0; k < nblk; ++k) {
+      sb += db_part[base + k * per_seq];
+      sc += dc_part[base + k * per_seq];
+    }
+    st_f(db, idx, b_bf16, sb);
+    st_f(dc, idx, c_bf16, sc);
+  }
+  if (idx < (long)di * DS) {
+    float sa = 0.f;
+    for (int bi = 0; bi < bsz; ++bi) sa += da_part[(long)bi * di * DS + idx];
+    da_log[idx] = sa * -expf(a_log[idx]);
+    if (idx % DS == 0) {
+      const long ch = idx / DS;
+      float sd = 0.f;
+      for (int bi = 0; bi < bsz; ++bi) sd += dd_part[(long)bi * di + ch];
+      dd_out[ch] = sd;
+    }
+  }
+}
+
+template <int DS, bool kStates>
 cudaError_t launch(const void* xc, const void* dt, const void* b,
                    const void* c, const float* a_log, const float* d,
                    void* y, float* h_final, int bsz, int s, int di,
                    bool x_bf16, bool dt_bf16, bool b_bf16, bool c_bf16,
-                   cudaStream_t stream) {
+                   float* h_chunks, cudaStream_t stream) {
   // kStages stages and the f32 work buffer
   constexpr int smem =
       (kStages + 1) * (2 * kChunk * kCh + 2 * kChunk * DS) * 4;
   // per launch: the limit is per device, and a failure is not cached
   const cudaError_t attr = cudaFuncSetAttribute(
-      scan_fwd<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      scan_fwd<DS, kStates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((di + kCh - 1) / kCh, bsz);
-  scan_fwd<DS><<<grid, kThreads, smem, stream>>>(
+  scan_fwd<DS, kStates><<<grid, kThreads, smem, stream>>>(
       xc, dt, b, c, a_log, d, y, h_final, s, di, x_bf16, dt_bf16, b_bf16,
-      c_bf16);
+      c_bf16, h_chunks);
+  return cudaGetLastError();
+}
+
+template <bool kStates>
+cudaError_t launch_ds(const void* xc, const void* dt, const void* b,
+                      const void* c, const void* a_log, const void* d,
+                      void* y, void* h_final, int bsz, int s, int di, int ds,
+                      int x_dtype, int dt_dtype, int b_dtype, int c_dtype,
+                      void* h_chunks, void* stream) {
+  const float* al = static_cast<const float*>(a_log);
+  const float* dv = static_cast<const float*>(d);
+  float* hf = static_cast<float*>(h_final);
+  float* hc = static_cast<float*>(h_chunks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool xb = x_dtype == 1, dtb = dt_dtype == 1, bb = b_dtype == 1,
+             cb = c_dtype == 1;
+  switch (ds) {
+    case 4:
+      return launch<4, kStates>(xc, dt, b, c, al, dv, y, hf, bsz, s, di, xb,
+                                dtb, bb, cb, hc, st);
+    case 8:
+      return launch<8, kStates>(xc, dt, b, c, al, dv, y, hf, bsz, s, di, xb,
+                                dtb, bb, cb, hc, st);
+    case 16:
+      return launch<16, kStates>(xc, dt, b, c, al, dv, y, hf, bsz, s, di,
+                                 xb, dtb, bb, cb, hc, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int DS>
+cudaError_t launch_bwd(const void* xc, const void* dt, const void* b,
+                       const void* c, const float* a_log, const float* d,
+                       const void* dy, const float* h_chunks,
+                       const float* dh_final, void* dxc, void* ddt, void* db,
+                       void* dc, float* da_log, float* dd_out,
+                       float* scratch, int bsz, int s, int di, bool x_bf16,
+                       bool dt_bf16, bool b_bf16, bool c_bf16,
+                       cudaStream_t stream) {
+  constexpr int kCh = kBwdThreads / DS;
+  constexpr int smem = (5 * kChunk * kCh + 2 * kChunk * DS +
+                        2 * (kBwdThreads / 32) * kChunk * DS) *
+                       4;
+  const int nblk = (di + kCh - 1) / kCh;
+  const long part = (long)bsz * nblk * s * DS;
+  float* db_part = scratch;
+  float* dc_part = db_part + part;
+  float* da_part = dc_part + part;
+  float* dd_part = da_part + (long)bsz * di * DS;
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_bwd<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  scan_bwd<DS><<<dim3(nblk, bsz), kBwdThreads, smem, stream>>>(
+      xc, dt, b, c, a_log, d, dy, h_chunks, dh_final, dxc, ddt, db_part,
+      dc_part, da_part, dd_part, s, di, x_bf16, dt_bf16, b_bf16, c_bf16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long n = std::max((long)bsz * s * DS, (long)di * DS);
+  scan_bwd_reduce<DS><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      db_part, dc_part, da_part, dd_part, a_log, db, dc, da_log, dd_out, bsz,
+      s, di, nblk, b_bf16, c_bf16);
   return cudaGetLastError();
 }
 
@@ -407,23 +710,63 @@ extern "C" int repro_mamba_scan(const void* xc, const void* dt,
   if (bsz <= 0 || s <= 0 || di <= 0 || bsz > 65535) {
     return cudaErrorInvalidValue;
   }
+  return (int)launch_ds<false>(xc, dt, b, c, a_log, d, y, h_final, bsz, s,
+                               di, ds, x_dtype, dt_dtype, b_dtype, c_dtype,
+                               nullptr, stream);
+}
+
+// The training forward: the same kernel, also writing h_chunks
+// [B, ceil(S / 64), di, ds] f32, the state entering each 64-step chunk.
+extern "C" int repro_mamba_scan_fwd_states(
+    const void* xc, const void* dt, const void* b, const void* c,
+    const void* a_log, const void* d, void* y, void* h_final, void* h_chunks,
+    int bsz, int s, int di, int ds, int x_dtype, int dt_dtype, int b_dtype,
+    int c_dtype, void* stream) {
+  if (bsz <= 0 || s <= 0 || di <= 0 || bsz > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  return (int)launch_ds<true>(xc, dt, b, c, a_log, d, y, h_final, bsz, s, di,
+                              ds, x_dtype, dt_dtype, b_dtype, c_dtype,
+                              h_chunks, stream);
+}
+
+// The backward: dy in xc's dtype, dh_final f32 [B, di, ds] or null (zero);
+// dxc, ddt, db, dc in their inputs' dtypes, da_log [di, ds] and dd [di]
+// f32; scratch f32 of 2 * B * nblk * S * ds + B * di * (ds + 1) floats,
+// nblk = ceil(di / (256 / ds)).  Two launches on one stream.
+extern "C" int repro_mamba_scan_bwd(
+    const void* xc, const void* dt, const void* b, const void* c,
+    const void* a_log, const void* d, const void* dy, const void* h_chunks,
+    const void* dh_final, void* dxc, void* ddt, void* db, void* dc,
+    void* da_log, void* dd, void* scratch, int bsz, int s, int di, int ds,
+    int x_dtype, int dt_dtype, int b_dtype, int c_dtype, void* stream) {
+  if (bsz <= 0 || s <= 0 || di <= 0 || bsz > 65535) {
+    return cudaErrorInvalidValue;
+  }
   const float* al = static_cast<const float*>(a_log);
   const float* dv = static_cast<const float*>(d);
-  float* hf = static_cast<float*>(h_final);
+  const float* hc = static_cast<const float*>(h_chunks);
+  const float* dhf = static_cast<const float*>(dh_final);
+  float* dal = static_cast<float*>(da_log);
+  float* ddo = static_cast<float*>(dd);
+  float* scr = static_cast<float*>(scratch);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool xb = x_dtype == 1, dtb = dt_dtype == 1, bb = b_dtype == 1,
              cb = c_dtype == 1;
   switch (ds) {
     case 4:
-      return launch<4>(xc, dt, b, c, al, dv, y, hf, bsz, s, di, xb, dtb, bb,
-                       cb, st);
+      return (int)launch_bwd<4>(xc, dt, b, c, al, dv, dy, hc, dhf, dxc, ddt,
+                                db, dc, dal, ddo, scr, bsz, s, di, xb, dtb,
+                                bb, cb, st);
     case 8:
-      return launch<8>(xc, dt, b, c, al, dv, y, hf, bsz, s, di, xb, dtb, bb,
-                       cb, st);
+      return (int)launch_bwd<8>(xc, dt, b, c, al, dv, dy, hc, dhf, dxc, ddt,
+                                db, dc, dal, ddo, scr, bsz, s, di, xb, dtb,
+                                bb, cb, st);
     case 16:
-      return launch<16>(xc, dt, b, c, al, dv, y, hf, bsz, s, di, xb, dtb,
-                        bb, cb, st);
+      return (int)launch_bwd<16>(xc, dt, b, c, al, dv, dy, hc, dhf, dxc, ddt,
+                                 db, dc, dal, ddo, scr, bsz, s, di, xb, dtb,
+                                 bb, cb, st);
     default:
-      return cudaErrorInvalidValue;
+      return (int)cudaErrorInvalidValue;
   }
 }

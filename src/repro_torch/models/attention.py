@@ -53,6 +53,19 @@ def _out_proj(out: torch.Tensor, p: Dict) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
+def self_attention_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal attention for training (no cache), through
+    the flash-attention kernel at any S; on the card its gradient is the
+    kernel's hand-written backward.  The reference switches to
+    ``gqa_blocked`` above 1024 tokens, whose bf16 operands and bf16
+    softmax weights differ from the kernel by bf16 rounding in a bf16
+    model (as the port's prefill does); in f32 both agree within 1e-4."""
+    q, k, v = project_qkv(p, cfg, x, positions)
+    return _out_proj(fa_ops.flash_attention(q, k, v, causal=True,
+                                            q_offset=0), p)
+
+
 def self_attention_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                            positions: torch.Tensor, cache_entry: Dict,
                            slot: int = 0) -> torch.Tensor:

@@ -61,18 +61,29 @@ def _causal_conv(p: Dict, x: torch.Tensor, state: Optional[torch.Tensor]
     return out.to(x.dtype), new_state.to(x.dtype)
 
 
-def mamba_seq(p: Dict, cfg: ModelConfig, x: torch.Tensor):
-    """Full-sequence mamba block.  x [B,S,d] -> (y [B,S,d], {"conv"
-    [B,dc-1,di], "ssm" [B,di,ds]}) final states, in x's dtype, for the
-    decode cache."""
+def _seq(p: Dict, cfg: ModelConfig, x: torch.Tensor):
     xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     xc, conv_state = _causal_conv(p, xi, None)
     xc = F.silu(xc).contiguous()
     dt, bmat, cmat = _ssm_inputs(p, cfg, xc)
     y, h_final = ms_ops.mamba_scan(xc, dt, bmat, cmat, p["A_log"], p["D"])
     y = y * F.silu(z)
-    return y @ p["out_proj"], {"conv": conv_state,
-                               "ssm": h_final.to(x.dtype)}
+    return y @ p["out_proj"], conv_state, h_final
+
+
+def mamba_seq(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """Full-sequence mamba block.  x [B,S,d] -> (y [B,S,d], {"conv"
+    [B,dc-1,di], "ssm" [B,di,ds]}) final states, in x's dtype, for the
+    decode cache."""
+    y, conv_state, h_final = _seq(p, cfg, x)
+    return y, {"conv": conv_state, "ssm": h_final.to(x.dtype)}
+
+
+def mamba_train(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """``mamba_seq``'s train mode: x [B,S,d] -> y [B,S,d], no state (on
+    the card the scan's gradient is the kernel's hand-written
+    backward)."""
+    return _seq(p, cfg, x)[0]
 
 
 def mamba_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict):

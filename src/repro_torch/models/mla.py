@@ -59,11 +59,10 @@ def _scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(float(m.qk_nope_head_dim + m.qk_rope_head_dim))
 
 
-def mla_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, cache_entry: Dict,
-                slot: int = 0) -> torch.Tensor:
-    """Decompressed causal attention over x [B,S,d]; the latents go into
-    rows ``slot:slot+B`` of ``cache_entry`` in place.  Returns [B,S,d]."""
+def _attend(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    """Decompressed causal attention over x [B,S,d] -> (out [B,S,d], ckv
+    [B,S,r], k_rope [B,S,rope])."""
     m = cfg.mla
     b, s, _ = x.shape
     q_nope, q_rope = _project_q(p, cfg, x, positions)
@@ -90,11 +89,28 @@ def mla_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     step = BLOCK_Q if s > _BLOCKED_THRESHOLD else s
     o = torch.cat([attend(i, min(i + step, s)) for i in range(0, s, step)],
                   dim=1)
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"]), ckv, k_rope
+
+
+def mla_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """``mla_prefill`` without the cache (the reference's ``mla_train``):
+    [B,S,d] -> [B,S,d], blocked over q above 1024 tokens."""
+    return _attend(p, cfg, x, positions)[0]
+
+
+def mla_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, cache_entry: Dict,
+                slot: int = 0) -> torch.Tensor:
+    """Decompressed causal attention over x [B,S,d]; the latents go into
+    rows ``slot:slot+B`` of ``cache_entry`` in place.  Returns [B,S,d]."""
+    out, ckv, k_rope = _attend(p, cfg, x, positions)
+    b, s = x.shape[0], x.shape[1]
     rows = slice(slot, slot + b)
     for name, t in (("ckv", ckv), ("kr", k_rope)):
         cache_entry[name][rows, :s] = t
         cache_entry[name][rows, s:] = 0
-    return torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    return out
 
 
 def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,

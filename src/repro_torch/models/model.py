@@ -3,7 +3,9 @@
 cross-attention layers, dense or MoE feed-forward blocks, a dense first
 layer, and token or embedding inputs.
 
-Two serving entry points, with the reference's cache layout
+Three entry points: ``forward_train`` (and ``forward_hidden`` /
+``loss_fn`` for the LM loss) and two serving ones, the latter with the
+reference's cache layout
 (``layers[pos][name]`` with a leading ``n_periods`` axis: ``k``/``v``
 ``[n, B, cache_len, KV, hd]`` for attention layers, ``ckv``
 ``[n, B, cache_len, kv_lora]`` and ``kr`` ``[n, B, cache_len, rope]`` for
@@ -16,19 +18,31 @@ the ``n`` axis; plus ``pos [B]``):
           embeds=None, vision=None) -> (last_logits [B,V], cache)
   decode_step(params, cfg, cache, tokens=None, embeds=None)
       -> (logits [B,V], cache)
+  forward_train(params, cfg, tokens=None, embeds=None, vision=None,
+                positions=None) -> (logits [B,S,V], aux)
+  loss_fn(params, cfg, batch) -> (loss, {"lm_loss", "moe_aux"})
 
 PyTorch runs eagerly, so the stacked layers are walked with a Python loop
 instead of ``lax.scan``.  Caches are updated in place: prefill writes the
 prompt's K/V, latents, vision K/V and SSM states straight into rows
 ``slot:slot+B`` of a caller's cache (the engine's slot insert), where the
 reference builds a padded cache and copies it in.
+
+Training differentiates through the stacked parameters themselves: a
+layer reads views of the ``n_periods``-stacked leaves, so every leaf's
+``.grad`` has the reference's shape.  ``cfg.remat`` wraps each period of
+the stack in ``torch.utils.checkpoint`` (non-reentrant), where the
+reference has ``jax.checkpoint(body, nothing_saveable)``: only the
+period's input is kept and its activations are recomputed in the
+backward.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
@@ -104,7 +118,10 @@ def _index(tree, i: int):
 def _mamba(p: Dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
            entry: Dict, slot: int) -> torch.Tensor:
     """A mamba layer; its conv and SSM states are written in place into
-    rows ``slot:slot+B`` (prefill) or all rows (decode) of ``entry``."""
+    rows ``slot:slot+B`` (prefill) or all rows (decode) of ``entry``
+    (training keeps none)."""
+    if mode == "train":
+        return mamba_mod.mamba_train(p, cfg, h)
     if mode == "prefill":
         y, states = mamba_mod.mamba_seq(p, cfg, h)
         rows = slice(slot, slot + h.shape[0])
@@ -119,16 +136,18 @@ def _mamba(p: Dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
 def _cross(p: Dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
            entry: Dict, vis: Optional[torch.Tensor], slot: int):
     """A cross layer's attention: prefill projects the vision K/V once and
-    writes it into rows ``slot:slot+B``; decode reads it back."""
+    writes it into rows ``slot:slot+B``; decode reads it back; training
+    projects it and keeps nothing."""
     if mode == "decode":
         vis_kv = entry
     else:
         if vis is None:
             raise ValueError(f"{cfg.name}: a cross-attention layer needs "
-                             "vision inputs at prefill")
+                             f"vision inputs at {mode}")
         vis_kv = attn.vision_kv(p["attn"], cfg, vis)
-        for name, t in vis_kv.items():
-            entry[name][slot:slot + h.shape[0]] = t
+        if mode == "prefill":
+            for name, t in vis_kv.items():
+                entry[name][slot:slot + h.shape[0]] = t
     return attn.cross_attention(p["attn"], cfg, h, vis_kv)
 
 
@@ -137,10 +156,12 @@ def _gate(y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(p: Dict, cfg: ModelConfig, pos: int, x: torch.Tensor,
-           positions: torch.Tensor, mode: str, entry: Dict,
-           vis: Optional[torch.Tensor], slot: int) -> torch.Tensor:
+           positions: torch.Tensor, mode: str, entry: Optional[Dict],
+           vis: Optional[torch.Tensor], slot: int
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer (the reference's ``_layer``, ``model.py:99-153``),
-    its cache entry updated in place."""
+    its cache entry updated in place (``mode`` "prefill" or "decode";
+    "train" has none).  Returns (x, the MoE aux loss or None)."""
     kind = cfg.layer_kind(pos)
     h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind == "mamba":
@@ -148,43 +169,80 @@ def _layer(p: Dict, cfg: ModelConfig, pos: int, x: torch.Tensor,
     elif kind == "cross":
         y = _gate(_cross(p, cfg, h, mode, entry, vis, slot), p["gate_attn"])
     elif cfg.attention == "mla":
-        if mode == "prefill":
+        if mode == "train":
+            y = mla_mod.mla_train(p["attn"], cfg, h, positions)
+        elif mode == "prefill":
             y = mla_mod.mla_prefill(p["attn"], cfg, h, positions, entry,
                                     slot)
         else:
             y = mla_mod.mla_decode(p["attn"], cfg, h, positions, entry)
+    elif mode == "train":
+        y = attn.self_attention_train(p["attn"], cfg, h, positions)
     elif mode == "prefill":
         y = attn.self_attention_prefill(p["attn"], cfg, h, positions,
                                         entry, slot)
     else:
         y = attn.self_attention_decode(p["attn"], cfg, h, positions, entry)
     x = x + y
+    aux = None
     if "ln2" in p:
         h2 = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
         if "moe" in p:
-            y2, _ = moe_mod.moe_layer(p["moe"], cfg, h2)
+            y2, aux = moe_mod.moe_layer(p["moe"], cfg, h2)
         else:
             y2 = ffn_forward(p["ffn"], cfg, h2)
         if kind == "cross":
             y2 = _gate(y2, p["gate_ffn"])
         x = x + y2
-    return x
+    return x, aux
+
+
+def _period(layers, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor, mode: str, entries,
+            vis: Optional[torch.Tensor], slot: int):
+    """One period of the stack: (x, the MoE aux loss of the period's
+    LAST layer, f32).  The reference's scan carry adds only the aux of
+    the layer its period loop ran last (``model.py:192-203``), so a
+    period whose MoE layers are not last (jamba's 1, 3, 5 of 8) adds
+    theirs nowhere; the port keeps that sum, so that its loss and
+    gradients are the reference's."""
+    aux = None
+    for pos in range(cfg.period):
+        x, aux = _layer(layers[pos], cfg, pos, x, positions, mode,
+                        None if entries is None else entries[pos], vis,
+                        slot)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _run_stack(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, mode: str, cache: Dict,
-               vis: Optional[torch.Tensor] = None,
-               slot: int = 0) -> torch.Tensor:
-    """The dense first layer (if any), then the periodic stack."""
+               positions: torch.Tensor, mode: str, cache: Optional[Dict],
+               vis: Optional[torch.Tensor] = None, slot: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense first layer (if any), then the periodic stack; in train
+    mode (``cache`` None) each period under ``torch.utils.checkpoint``
+    when ``cfg.remat``.  Returns (x, the MoE aux loss summed as the
+    reference sums it, f32; see :func:`_period`)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.dense_first_layer:
-        x = _layer(params["first_layer"], cfg, 0, x, positions, mode,
-                   cache["first_layer"], vis, slot)
+        x, aux = _layer(params["first_layer"], cfg, 0, x, positions, mode,
+                        None if cache is None else cache["first_layer"],
+                        vis, slot)
+        if aux is not None:
+            aux_total = aux_total + aux
+    remat = cfg.remat and mode == "train"
     for i in range(cfg.n_periods):
-        for pos in range(cfg.period):
-            x = _layer(_index(params["layers"][pos], i), cfg, pos, x,
-                       positions, mode, _index(cache["layers"][pos], i),
-                       vis, slot)
-    return x
+        layers = [_index(lp, i) for lp in params["layers"]]
+        entries = None if cache is None else [
+            _index(e, i) for e in cache["layers"]]
+        args = (layers, cfg, x, positions, mode, entries, vis, slot)
+        if remat:
+            x, aux = checkpoint(_period, *args, use_reentrant=False)
+        else:
+            x, aux = _period(*args)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _embed(params: Dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
@@ -249,7 +307,8 @@ def prefill(params: Dict, cfg: ModelConfig,
     if vision is not None and "vision_proj" in params:
         vis = vision.to(x.dtype) @ params["vision_proj"]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x = _run_stack(params, cfg, x, positions, "prefill", cache, vis, slot)
+    x, _ = _run_stack(params, cfg, x, positions, "prefill", cache, vis,
+                      slot)
     cache["pos"][slot:slot + b] = s
     return _head(params, cfg, x[:, s - 1:])[:, 0], cache
 
@@ -264,6 +323,61 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     x = _embed(params, cfg, None if tokens is None else tokens[:, None],
                embeds)
     positions = cache["pos"]
-    x = _run_stack(params, cfg, x, positions, "decode", cache)
+    x, _ = _run_stack(params, cfg, x, positions, "decode", cache)
     cache["pos"] += 1
     return _head(params, cfg, x)[:, 0], cache
+
+
+def forward_hidden(params: Dict, cfg: ModelConfig,
+                   tokens: Optional[torch.Tensor] = None,
+                   embeds: Optional[torch.Tensor] = None,
+                   vision: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None):
+    """The full-sequence forward without a cache, stopped at the
+    final-normed hidden states: (hidden [B,S,d], aux)."""
+    x = _embed(params, cfg, tokens, embeds)
+    b, s = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    vis = None
+    if vision is not None and "vision_proj" in params:
+        vis = vision.to(x.dtype) @ params["vision_proj"]
+    x, aux = _run_stack(params, cfg, x, positions, "train", None, vis)
+    return ops.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward_train(params: Dict, cfg: ModelConfig,
+                  tokens: Optional[torch.Tensor] = None,
+                  embeds: Optional[torch.Tensor] = None,
+                  vision: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None):
+    """Full-sequence forward (no cache): (logits [B,S,V], aux)."""
+    x = _embed(params, cfg, tokens, embeds)
+    b, s = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    vis = None
+    if vision is not None and "vision_proj" in params:
+        vis = vision.to(x.dtype) @ params["vision_proj"]
+    x, aux = _run_stack(params, cfg, x, positions, "train", None, vis)
+    return _head(params, cfg, x), aux
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
+    """Next-token LM loss (+ the MoE aux loss times its weight), with
+    the sequence-chunked CE so the full-vocab logits never exist.
+    ``batch``: labels [B,S] and tokens [B,S] or embeds [B,S,d] (+ vision).
+    Returns (total, {"lm_loss", "moe_aux"})."""
+    hidden, aux = forward_hidden(params, cfg, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"),
+                                 vision=batch.get("vision"))
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
+        w_head = params["embed"].T
+    else:
+        w_head = params["lm_head"]
+    loss = ops.chunked_cross_entropy(hidden, w_head, batch["labels"],
+                                     cfg.logit_softcap)
+    total = loss
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_weight * aux
+    return total, {"lm_loss": loss, "moe_aux": aux}

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
@@ -68,3 +69,48 @@ def causal_mask(q_len: int, kv_len: int, q_offset=0,
     q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
     kv_pos = torch.arange(kv_len, device=device)[None, :]
     return kv_pos <= q_pos
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross entropy in f32.  logits [..., V], labels
+    [...]; ``mask`` weights the tokens (mean over the mask's sum, at
+    least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _ce_block(h: torch.Tensor, w_head: torch.Tensor, y: torch.Tensor,
+              softcap_val: float) -> torch.Tensor:
+    logits = softcap((h @ w_head).float(), softcap_val)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
+                          labels: torch.Tensor, softcap_val: float = 0.0,
+                          block: int = 512) -> torch.Tensor:
+    """Sequence-chunked CE: the logits exist one [B, block, V] f32 slab
+    at a time, each block under ``torch.utils.checkpoint`` (recomputed in
+    the backward, as the reference's ``jax.checkpoint`` body is), so the
+    full [B, S, V] f32 logits -- 5 GB at qwen3-0.6b's 151,936-token
+    vocabulary and 8 x 1024 tokens -- never exist.
+
+    hidden [B,S,d] (already final-normed); w_head [d,V]; labels [B,S].
+    The block sums are added in order and divided by B * S."""
+    b, s, _ = hidden.shape
+    block = min(block, s)
+    assert s % block == 0
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, block):
+        total = total + checkpoint(_ce_block, hidden[:, i:i + block], w_head,
+                                   labels[:, i:i + block], softcap_val,
+                                   use_reentrant=False)
+    return total / (b * s)

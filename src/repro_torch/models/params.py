@@ -287,3 +287,25 @@ def count_tensor_params(params) -> int:
     if isinstance(params, (list, tuple)):
         return sum(count_tensor_params(v) for v in params)
     return params.numel()
+
+
+# -- trees ---------------------------------------------------------------------
+
+def leaves(tree):
+    """A tree's tensors in ``jax.tree_util`` order (dict keys sorted,
+    list items by index)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree):
+    """``tree`` with every leaf replaced by ``fn(leaf)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+

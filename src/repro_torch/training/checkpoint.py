@@ -13,7 +13,11 @@ the reference writes when ``zstandard`` is missing.  Neither ``msgpack``
 nor ``zstandard`` is imported: the port carries its own codec for the
 msgpack subset these files use (:func:`packb` / :func:`unpackb`), and a
 zstd-compressed checkpoint raises :class:`ZstdError`.  Leaves may be
-torch tensors or numpy arrays; restored leaves are numpy arrays.
+torch tensors or numpy arrays; restored leaves are numpy arrays, except
+bfloat16 ones.  numpy has no bfloat16 without ``ml_dtypes`` (which the
+card's machine lacks), so a bf16 leaf is written as the reference writes
+an ``ml_dtypes`` one -- ``dtype: "bfloat16"`` and its raw 2-byte data --
+and read back as a CPU ``torch.bfloat16`` tensor.
 """
 from __future__ import annotations
 
@@ -209,7 +213,10 @@ class ZstdError(IOError):
 
 
 def _compress(data: bytes) -> bytes:
-    return b"ZLB0" + zlib.compress(data, level=6)
+    # stored (zlib level 0), in the reference's ZLB0 format, which every
+    # reader takes: deflate gains a few percent on float data at ~20 MB/s,
+    # minutes on a train state's GBs
+    return b"ZLB0" + zlib.compress(data, level=0)
 
 
 def _decompress(blob: bytes) -> bytes:
@@ -234,16 +241,40 @@ def _leaves_with_keys(tree, path=()):
         yield "/".join(path), tree
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf):
+    """A leaf on the host: a numpy array, or a CPU tensor for bfloat16."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError("bfloat16 leaves have no numpy dtype; a router "
-                            "checkpoint holds none")
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
     return np.asarray(leaf)
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
+def _host_copy(leaf):
+    """A host copy of a leaf that later in-place updates cannot reach
+    (a device leaf's transfer is that copy already)."""
+    h = _host(leaf)
+    if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
+        return h
+    return h.clone() if isinstance(h, torch.Tensor) else h.copy()
+
+
+def _record(leaf) -> Tuple[str, list, bytes]:
+    """(dtype name, shape, raw bytes) of a host leaf."""
+    if isinstance(leaf, torch.Tensor):                  # bfloat16
+        raw = leaf.contiguous().view(torch.int16).numpy().tobytes()
+        return "bfloat16", list(leaf.shape), raw
+    return str(leaf.dtype), list(leaf.shape), leaf.tobytes()
+
+
+def _from_record(rec):
+    buf, shape = rec["data"], rec["shape"]
+    if rec["dtype"] == "bfloat16":
+        return torch.frombuffer(bytearray(buf), dtype=torch.bfloat16
+                                ).reshape(shape)
+    return np.frombuffer(buf, dtype=np.dtype(rec["dtype"])).reshape(shape)
+
+
+def _flatten(tree) -> Dict[str, Any]:
     return {k: _host(v) for k, v in _leaves_with_keys(tree)}
 
 
@@ -260,10 +291,10 @@ def _map_leaves(tree, fn, path=()):
 
 def serialize(tree, extra: Optional[Dict[str, Any]] = None) -> bytes:
     payload = {"leaves": {}, "extra": extra or {}}
-    for k, arr in _flatten(tree).items():
-        buf = arr.tobytes()
+    for k, leaf in _flatten(tree).items():
+        dtype, shape, buf = _record(leaf)
         payload["leaves"][k] = {
-            "dtype": str(arr.dtype), "shape": list(arr.shape),
+            "dtype": dtype, "shape": shape,
             "crc": zlib.crc32(buf), "data": buf,
         }
     return _compress(packb(payload))
@@ -271,15 +302,15 @@ def serialize(tree, extra: Optional[Dict[str, Any]] = None) -> bytes:
 
 def deserialize(blob: bytes, like_tree) -> Tuple[Any, Dict[str, Any]]:
     """Rebuild ``like_tree``'s structure from a checkpoint blob; the
-    leaves come back as (read-only) numpy arrays."""
+    leaves come back as (read-only) numpy arrays, bfloat16 ones as CPU
+    tensors."""
     payload = unpackb(_decompress(blob))
     leaves_by_key = {}
     for k, rec in payload["leaves"].items():
         buf = rec["data"]
         if zlib.crc32(buf) != rec["crc"]:
             raise IOError(f"checkpoint leaf {k!r} failed CRC check")
-        leaves_by_key[k] = np.frombuffer(
-            buf, dtype=np.dtype(rec["dtype"])).reshape(rec["shape"])
+        leaves_by_key[k] = _from_record(rec)
     like = dict(_leaves_with_keys(like_tree))
     if set(like) != set(leaves_by_key):
         missing = set(like) ^ set(leaves_by_key)
@@ -312,7 +343,7 @@ class CheckpointManager:
         # device->host copies happen on the caller thread (so later
         # in-place updates of the live tensors cannot reach the file);
         # compression+IO happen on the writer thread
-        host_tree = _map_leaves(tree, lambda _, x: _host(x).copy())
+        host_tree = _map_leaves(tree, lambda _, x: _host_copy(x))
         self._q.put((step, host_tree, extra))
         if sync:
             self.wait()

@@ -225,8 +225,13 @@ def test_restore_rejects_a_tree_that_does_not_match(tmp_path):
         pt_ckpt.deserialize(blob, {"v": np.ones((2, 3), np.float32)})
     with pytest.raises(IOError, match="shape mismatch"):
         pt_ckpt.deserialize(blob, {"w": np.ones((3, 2), np.float32)})
-    with pytest.raises(TypeError, match="bfloat16"):
-        pt_ckpt.serialize({"w": torch.ones(2, dtype=torch.bfloat16)})
+    # a bf16 leaf is written as the reference writes one (dtype
+    # "bfloat16", raw 2-byte data) and read back as a bf16 tensor
+    w = torch.arange(6, dtype=torch.float32).reshape(2, 3).to(torch.bfloat16)
+    got, _ = pt_ckpt.deserialize(pt_ckpt.serialize({"w": w}), {"w": w})
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], w)
+    with pytest.raises(IOError, match="shape mismatch"):
+        pt_ckpt.deserialize(pt_ckpt.serialize({"w": w}), {"w": w.T})
 
 
 def test_zstd_blob_raises_the_reference_error():

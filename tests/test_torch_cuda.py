@@ -359,7 +359,7 @@ def _numpy_tree(tree):
         return {k: _numpy_tree(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_numpy_tree(v) for v in tree]
-    return tree.numpy()
+    return tree.detach().numpy()
 
 
 # -- the router's learning path on the card (no kernel of its own) ----------
@@ -735,3 +735,107 @@ def test_cuda_new_families_match_cpu(cuda_device, arch):
         assert bool(torch.isfinite(gpu).all())
         torch.testing.assert_close(gpu.cpu(), c, rtol=1e-3, atol=1e-3)
 
+
+
+# -- training: the hand-written backwards and the train step -------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(2, 130, 16, 8, 128),
+                                         (1, 63, 24, 24, 64),
+                                         (2, 65, 4, 2, 32), (1, 1, 4, 4, 32)])
+def test_cuda_flash_attention_bwd_matches_plain(cuda_device, dtype, b, s, h,
+                                                kv, hd):
+    """The training forward (o and lse) and the backward against their
+    plain versions; dq/dk/dv within 2e-2 (bf16) or 1e-4 (f32) of the
+    largest |grad| of the three (dq and dk are exactly zero at S=1)."""
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    q, do = (_rand(g, cuda_device, dtype, b, s, h, hd) for _ in range(2))
+    k, v = (_rand(g, cuda_device, dtype, b, s, kv, hd) for _ in range(2))
+    o, lse = fa.flash_attention_train_fwd(q, k, v)
+    o_p, lse_p = fa.flash_attention_lse_plain(q, k, v)
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=TOLS[dtype],
+                               atol=TOLS[dtype])
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse_p, do)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    top = max(float(w.float().abs().max()) for w in want)
+    for x, w in zip(got, want):
+        assert float((x.float() - w.float()).abs().max()) <= tol * top
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [1, 31, 64, 200])
+def test_cuda_mamba_scan_bwd_matches_plain(cuda_device, act_dtype, s):
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    xc, dt, b, c, a_log, d = _scan_inputs(g, cuda_device, 2, s, 300, 16,
+                                          act_dtype)
+    dy = _rand(g, cuda_device, act_dtype, 2, s, 300)
+    dh = _rand(g, cuda_device, torch.float32, 2, 300, 16)
+    y, hf, hc = ms.mamba_scan_train_fwd(xc, dt, b, c, a_log, d)
+    y_s, hf_s = ms.mamba_scan(xc, dt, b, c, a_log, d)
+    assert torch.equal(y, y_s) and torch.equal(hf, hf_s)
+    got = ms.mamba_scan_bwd(xc, dt, b, c, a_log, d, hc, dy, dh)
+    want = ms.mamba_scan_bwd_plain(xc, dt, b, c, a_log, d, dy, dh)
+    tol = 2e-2 if act_dtype == torch.bfloat16 else 1e-4
+    for x, w in zip(got, want):
+        assert x.dtype == w.dtype and x.shape == w.shape
+        assert float((x.float() - w.float()).abs().max()) <= \
+            tol * float(w.float().abs().max())
+    again = ms.mamba_scan_bwd(xc, dt, b, c, a_log, d, hc, dy, dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_grads_only_for_training(cuda_device):
+    """A grad is taken only for causal attention with q_offset 0 and
+    Sq == Skv; anything else raises (no fallback to the plain version)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = _rand(g, cuda_device, torch.bfloat16, 1, 8, 4, 32)
+    k = _rand(g, cuda_device, torch.bfloat16, 1, 12, 4, 32)
+    q.requires_grad_()
+    with pytest.raises(ValueError, match="gradients"):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="gradients"):
+        fa.flash_attention(q, q, q, causal=False)
+    with torch.no_grad():
+        fa.flash_attention(q, k, k, q_offset=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
+                                  "deepseek-moe-16b", "minicpm3-4b"])
+def test_cuda_train_step_matches_cpu(cuda_device, arch):
+    """One f32 loss and backward of a reduced model (head_dim 32) on the
+    card through the backward kernels, against the CPU's autograd of the
+    plain versions: loss within 1e-5, every grad leaf within 1e-4 of its
+    largest |g|."""
+    from repro_torch.models.params import leaves
+    from repro_torch.training.train_loop import init_train_state
+    cfg = get_config(arch).reduced(head_dim=32)
+    p_cpu, _ = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    p_gpu = params_lib.from_reference(_numpy_tree(p_cpu), device="cuda")
+    for p in leaves(p_gpu):
+        p.requires_grad_()
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 48),
+                                     generator=g),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 48),
+                                     generator=g)}
+    losses = []
+    for params, dev in ((p_cpu, "cpu"), (p_gpu, "cuda")):
+        fa.launches_bwd = ms.launches_bwd = 0
+        loss, _ = model_lib.loss_fn(params, cfg, {k: v.to(dev) for k, v
+                                                  in batch.items()})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert fa.launches_bwd + ms.launches_bwd > 0 or arch == "minicpm3-4b"
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for pc, pg in zip(leaves(p_cpu), leaves(p_gpu)):
+        scale = float(pc.grad.abs().max())
+        assert float((pg.grad.cpu() - pc.grad).abs().max()) <= 1e-4 * scale

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(out.stdout.strip()) == len(_port_modules()) > 20
     assert {"repro_torch.core.calibrate", "repro_torch.serving.fidelity",
             "repro_torch.models.moe",
-            "repro_torch.models.mla"} <= set(_port_modules())
+            "repro_torch.models.mla", "repro_torch.training.optimizer",
+            "repro_torch.training.data", "repro_torch.launch.steps",
+            "repro_torch.launch.train"} <= set(_port_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -88,6 +90,12 @@ def test_entry_points_default_to_the_card():
                     "--arch", "qwen3-0.6b"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--calibrate", "--arch", "qwen3-0.6b"])
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import init_train_state
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "1"])
     for argv in (["--mode", "sim"], ["--mode", "gateway"],
                  ["--mode", "gateway", "--backend", "py", "--policy", "rl"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
