@@ -12,9 +12,10 @@ Training: when a CUDA input requires grad, ``flash_attention`` goes
 through :class:`FlashAttentionFn`, whose forward runs the same kernels
 with the row log-sum-exp written beside the output and whose backward is
 the hand-written ``repro_flash_attention_bwd`` (FlashAttention-2's split:
-D, then dQ, then dK/dV summing each kv-head's group).  Gradients exist only
-for what training calls -- ``causal=True``, ``q_offset=0``, Sq = Skv --
-and anything else with grad raises.  On the CPU autograd differentiates
+D, dQ, then dK/dV summing each kv-head's group; in bf16 on Hopper's
+warpgroup products fed by TMA, D inside the dQ kernel).  Gradients exist
+only for what training calls -- ``causal=True``, ``q_offset=0``, Sq = Skv
+-- and anything else with grad raises.  On the CPU autograd differentiates
 the plain version; :func:`flash_attention_bwd_plain` writes the same
 backward formula out in PyTorch, the kernel's yardstick on the card.
 """
@@ -32,8 +33,8 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last reset (the plain version never counts):
-#: forwards (serving and training alike), and backwards (one a call of
-#: the three kernels)
+#: forwards (serving and training alike), and backwards (one a call,
+#: whichever kernels it runs)
 launches = 0
 launches_bwd = 0
 
@@ -208,9 +209,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t, dtype in (("o", o, q.dtype), ("do", do, q.dtype),
                            ("lse", lse, torch.float32)):
         if t.device != q.device or t.dtype != dtype \
-                or not t.is_contiguous():
+                or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {name} must be a "
-                             f"contiguous {dtype} tensor on {q.device}")
+                             f"contiguous, 16-byte aligned {dtype} tensor "
+                             f"on {q.device}")
     if o.shape != q.shape or do.shape != q.shape \
             or tuple(lse.shape) != (b, h, s):
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "

@@ -61,6 +61,7 @@
 // multiply-add) leave the schedulers idle half the time, and the
 // per-chunk barriers, widening and stores, which do not overlap it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +70,8 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 // tests/test_torch_mamba.py reads kLanes and kGroup from this file
 constexpr int kLanes = 4;                 // lanes per channel
 constexpr int kThreads = 256;
@@ -76,6 +79,9 @@ constexpr int kCh = kThreads / kLanes;    // 64 channels per block
 constexpr int kChunk = 64;                // timesteps per staged chunk
 constexpr int kGroup = 8;                 // timesteps per reduce-scatter
 constexpr int kStages = 3;                // chunks staged at once
+// training: the forward saves the state entering every kStateChunk-th step
+// (ops.py's STATE_CHUNK reads this)
+constexpr int kStateChunk = 16;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kGroup % kLanes == 0 && kChunk % kGroup == 0, "groups");
@@ -254,8 +260,9 @@ __device__ __forceinline__ void group(float* xs, const float* dts,
   for (int j = 0; j < kOwn; ++j) xs[(t0 + sub * kOwn + j) * kCh + lc] = p[j];
 }
 
-// kStates (training): also write the state entering each chunk, h_chunks
-// [B, ceil(S / kChunk), di, ds] f32, which scan_bwd recomputes from
+// kStates (training): also write the state entering every kStateChunk-th
+// step, h_chunks [B, ceil(S / kStateChunk), di, ds] f32, which scan_bwd
+// recomputes from
 template <int DS, bool kStates>
 __global__ void __launch_bounds__(kThreads, 1)
     scan_fwd(const void* __restrict__ xc, const void* __restrict__ dt,
@@ -331,13 +338,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < n_chunks; ++i) {
     const int t0 = i * kChunk, steps = min(kChunk, s - t0);
     float* cur = smem + (i % kStages) * kBuf;
-    if constexpr (kStates) {
-      if (valid) {
-        float* hc = h_chunks + (((long)bi * n_chunks + i) * di + ch) * DS + n0;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) hc[j] = h[j];
-      }
-    }
     cp_async_wait<kStages - 2>();  // this thread's pieces of chunk i
     __syncthreads();  // everyone's pieces; chunk i-1's y has been stored
     // chunks i+1 .. i+kStages-1 in flight during the sweep
@@ -364,6 +364,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       view[a] = (bf16[a] ? work : cur) + kOff[a];
 #pragma unroll 1
     for (int t = 0; t < steps; t += kGroup) {
+      if constexpr (kStates) {
+        if (t % kStateChunk == 0 && valid) {
+          const int n_saved = (s + kStateChunk - 1) / kStateChunk;
+          float* hc = h_chunks +
+                      (((long)bi * n_saved + (t0 + t) / kStateChunk) * di +
+                       ch) * DS + n0;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) hc[j] = h[j];
+        }
+      }
       if (t + kGroup <= steps) {
         group<DS, NS, false>(view[0], view[1], view[2], view[3], t, lc, sub,
                              steps, dsel, a2, h);
@@ -403,38 +413,81 @@ __global__ void __launch_bounds__(kThreads, 1)
 //   ddt_t = x_t sum_ds g_t b_t + sum_ds g_t h_{t-1} e_t a
 //   da    = sum_{B,S} g_t h_{t-1} e_t dt_t,  da_log = da * a  (a = -exp(a_log))
 //   dd    = sum_{B,S} dy_t x_t
-// scan_bwd: a block of 256 threads holds 256 / ds channels of one sequence,
-// one thread a (channel, state).  It walks the chunks of kChunk steps from
-// the last to the first; for each it stages x, dt, dy, b and c (as f32) in
-// shared memory, recomputes the chunk's kChunk states in registers from the
-// state scan_fwd<kStates> wrote on entering it -- with the forward's own
-// ex2.approx and fmaf, so they are the forward's states -- then sweeps the
-// chunk in reverse, taking the second exponential of a step there.  Sums
-// over ds are shuffles inside the channel's ds lanes; dx and ddt of the
-// chunk are stored coalesced.  db and dc (sums over di) are reduced over a
-// warp's channels by shuffles, over the block's warps in shared memory, and
-// written as one partial a block; da and dd (sums over B and S) stay in
-// registers over the sweep and are written as one partial a sequence.
-// scan_bwd_reduce then sums the partials in a fixed order: no atomics, and
-// the gradients are bit-equal from run to run.
 //
 // What bounds it on this card: the inputs read once and dx, ddt, db, dc
-// written once (plus the chunk states) -- 117 MB at falcon-mamba-7b's
-// B=1, S=1024, di=8192 with bf16 x/b/c/dy and f32 dt, 0.035 ms at 3.35
-// TB/s.  The gradient needs exp(dt a) once a (step, channel, state):
-// 134,217,728 on the special-function units, 0.032 ms at 16 a clock per
-// SM, 1.98 GHz, 132 SMs, so the bound is the bytes.  This first version
-// takes each exponential twice (once recomputing the chunk's states, once
-// in the reverse sweep), the staging does not overlap the sweep, and the
-// partials of db and dc (B * di / 16 * S * 16 floats each) go through
-// device memory.
+// written once (the saved states counted one every 64 steps) -- at
+// falcon-mamba-7b's B=1, S=1024, di=8192 with bf16 x/b/c/dy and f32 dt
+// 127 MB, 0.038 ms at 3.35 TB/s.  That this kernel saves them every 16
+// steps (below) adds 25 MB, its own cost, not the function's.  The
+// gradient needs exp(dt a) once a (step, channel, state): 134,217,728 on
+// the special-function units, 0.032 ms at 16 a clock per SM, 1.98 GHz, 132
+// SMs.  So the bound is the bytes.
+//
+// scan_bwd's design:
+//  - kBwdLanes = 8 lanes a channel (4 at ds 4), each holding ds/8 states in
+//    registers, a block of 256 threads on 32 channels (64 at ds 4) of one
+//    sequence, two blocks an SM: at B=1, di=8192, 256 blocks, 16 warps an
+//    SM (scan_fwd's 4 lanes a channel give 8, and the sweep then waits on
+//    its own latencies: it measured slower, PERF.md).
+//  - the training forward saves the state entering every kStateChunk = 16
+//    steps.  The backward walks the sequence from its end in sub-chunks of
+//    16 steps: it recomputes the sub-chunk's states from the saved one into
+//    registers (16 x ds/8 a lane) with the forward's own ex2 and fmaf, so
+//    they are the forward's states, then sweeps the sub-chunk in reverse.
+//    That takes exp(dt a) twice an element (once recomputing, once in the
+//    sweep): keeping the 16 x ds/8 factors of the recompute as well would
+//    take 32 more registers a thread at ds 16, past the 128 that two blocks
+//    an SM leave, and the second exponential costs 0.032 ms of
+//    special-function time, which the sweep's other work covers.
+//  - reductions batched over a group of kBwdGroup = 4 steps, by
+//    reduce-scatter (a lane keeps half of the values at each exchange, so
+//    the shuffles are 1/2 + 1/4 + ... of the values).  Over a channel's
+//    states (q1 = sum g b, q2 = sum g h e a): a sum in registers, then the
+//    group's 8 values over the channel's 8 lanes (7 shuffles, and 1 to put
+//    q1 and q2 of a step in one lane), from which it forms dx and ddt.
+//    Over the channels (db, dc): the lane's 8 ds/8 values of the group over
+//    the warp's 4 channels (6 ds/8 shuffles), written as the warp's partial
+//    to shared memory, summed over the block's 8 warps once a chunk.
+//    Shuffles an element: (8 + 6 ds/8) / (4 ds/8), 2.5 at ds 16 (the first
+//    design took 10).
+//  - db and dc summed over a cluster's kBwdCluster = 8 blocks through
+//    distributed shared memory, each block summing an eighth of the chunk's
+//    values over the 8 ranks in rank order, one cluster barrier a chunk,
+//    split into arrive and wait around the next chunk's sweep; the
+//    clusters' partials go to device memory (B x ceil(di / 256) x S x ds x 2
+//    floats, 4.2 MB at falcon-mamba's width, read once more by
+//    scan_bwd_reduce, which sums them in a fixed order).  No atomics: the
+//    gradients are bit-equal from run to run.
+//  - staging: a ring of kBwdRing = 3 chunks of kBwdChunk = 32 steps, x, dt,
+//    dy, b, c copied by cp.async in 16-byte pieces, 32 channels (64 or 128
+//    bytes) a step row, issued two chunks ahead of the sweep; the bf16
+//    arrays widened to f32 once; dx and ddt written over x and dt in the
+//    chunk buffer and stored as 16-byte rows after the chunk's sweep, their
+//    stores draining while the next chunk is swept.
+// What holds it back (measured, PERF.md): the sweep.  At 16 warps an SM its
+// dependent chains (shared loads, the exponentials, the reductions'
+// shuffles) leave the schedulers idle most of the time, and the two
+// reductions are a large share of its instructions.
 
-constexpr int kBwdThreads = 256;  // ops.py's BWD_THREADS reads this
+constexpr int kBwdChunk = 32;    // steps a staged chunk (two sub-chunks)
+constexpr int kBwdGroup = 4;     // steps a batched reduction
+constexpr int kBwdRing = 3;      // chunks staged at once
+// ops.py reads these two: lanes a channel (ds >= 8; ds 4 takes 4) and
+// blocks a cluster
+constexpr int kBwdLanes = 8;
+constexpr int kBwdCluster = 8;
+constexpr int kWarpsB = kThreads / 32;
 
-__device__ __forceinline__ float ld_f(const void* p, long i, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
+__host__ __device__ constexpr int log2i(int n) {
+  return n > 1 ? 1 + log2i(n / 2) : 0;
 }
+
+// lanes a channel for d_state DS, and so states a lane (DS / lanes) and
+// channels a block (kThreads / lanes)
+template <int DS>
+constexpr int kLanesB = DS >= kBwdLanes ? kBwdLanes : DS;
+static_assert(kBwdChunk % kStateChunk == 0 && kStateChunk % kBwdGroup == 0,
+              "chunks");
 
 __device__ __forceinline__ void st_f(void* p, long i, bool bf16, float x) {
   if (bf16)
@@ -443,8 +496,156 @@ __device__ __forceinline__ void st_f(void* p, long i, bool bf16, float x) {
     static_cast<float*>(p)[i] = x;
 }
 
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// reduce-scatter of v[0 .. N) over the lanes lane ^ kOff, lane ^ 2 kOff,
+// ... (kLevels of them): at each level the lane whose bit kOff is set keeps
+// the upper half; after it v[0 .. N >> kLevels) holds the sums of the
+// block of the N values its bits selected (the first level the block's top
+// bit).  A recursion, so that every index is a constant and v stays in
+// registers
+template <int N, int kOff, int kLevels>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  if constexpr (kLevels > 0) {
+    constexpr int n = N / 2;
+    const bool hi = lane & kOff;
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      const float send = hi ? v[j] : v[j + n];
+      const float keep = hi ? v[j + n] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, kOff);
+    }
+    reduce_scatter<n, 2 * kOff, kLevels - 1>(v, lane);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void sts(float* p, const float* v) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// One sub-chunk of kStateChunk steps from chunk-local step ts on, for one
+// lane (states n0 .. n0 + NS - 1 of channel lc of the block's CH): recompute
+// its states from hs, then sweep it in reverse, carrying g and da; after
+// each group dx, ddt over x, dt and the warp's db, dc partials to wp
+// ([kBwdChunk][2][DS]).
+template <int DS, int LN, int CH>
+__device__ __forceinline__ void bwd_sub(
+    float* __restrict__ xs, float* __restrict__ dts,
+    const float* __restrict__ dys, const float* __restrict__ bs,
+    const float* __restrict__ cs, float* __restrict__ wp, int ts, int lc,
+    int sub, int lane, const float* hs, const float* a, const float* a2,
+    float dch, float* g, float* da, float& dd_acc) {
+  constexpr int NS = DS / LN;
+  constexpr int kGroups = kStateChunk / kBwdGroup;
+  // the reduction over the warp's 32 / LN channels: levels, and the pairs
+  // (step, db or dc) of the lane's states each lane keeps
+  constexpr int kLevels = log2i(32 / LN);
+  constexpr int kPairs = (2 * kBwdGroup) >> kLevels;
+  float hist[kStateChunk][NS];
+  {
+    float h[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) h[j] = hs[j];
+#pragma unroll
+    for (int u = 0; u < kStateChunk; ++u) {
+      const int t = ts + u;
+      const float x = xs[t * CH + lc], dtt = dts[t * CH + lc];
+      const float dtx = dtt * x;
+      float bv[NS];
+      lds<NS>(bs + t * DS + sub * NS, bv);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        h[j] = fmaf(ex2(dtt * a2[j]), h[j], dtx * bv[j]);
+        hist[u][j] = h[j];
+      }
+    }
+  }
+  // the lane's block of pairs after the channel reduction (its first level
+  // the top bit) ...
+  int kb = 0;
+#pragma unroll
+  for (int l = 0; l < kLevels; ++l)
+    kb = 2 * kb + ((lane >> (log2i(LN) + l)) & 1);
+  // ... and its step of each group after the state reduction, with q1 in
+  // the lane of sub bit 4 clear (LN = 8)
+  const int own = 2 * (sub & 1) + ((sub >> 1) & 1);
+  const bool writes = LN < 8 || sub < 4;
+#pragma unroll
+  for (int gq = kGroups - 1; gq >= 0; --gq) {
+    const int tg = ts + gq * kBwdGroup;
+    float qv[2 * kBwdGroup];       // [step][q1, q2]
+    float bc[2 * kBwdGroup * NS];  // [step][db, dc][state]
+#pragma unroll
+    for (int uu = kBwdGroup - 1; uu >= 0; --uu) {
+      const int u = gq * kBwdGroup + uu, t = ts + u;
+      const float x = xs[t * CH + lc], dtt = dts[t * CH + lc];
+      const float dyv = dys[t * CH + lc];
+      const float dtx = dtt * x;
+      float bv[NS], cv[NS];
+      lds<NS>(bs + t * DS + sub * NS, bv);
+      lds<NS>(cs + t * DS + sub * NS, cv);
+      float q1 = 0.f, q2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float hprev = u > 0 ? hist[u - 1][j] : hs[j];
+        g[j] = fmaf(dyv, cv[j], g[j]);
+        bc[(2 * uu) * NS + j] = g[j] * dtx;
+        bc[(2 * uu + 1) * NS + j] = dyv * hist[u][j];
+        const float e = ex2(dtt * a2[j]);
+        const float de = g[j] * hprev * e;
+        q1 = fmaf(g[j], bv[j], q1);
+        q2 = fmaf(de, a[j], q2);
+        da[j] = fmaf(de, dtt, da[j]);
+        g[j] *= e;
+      }
+      qv[2 * uu] = q1;
+      qv[2 * uu + 1] = q2;
+    }
+    // over the channel's LN lanes (sub bits 1, 2, 4)
+    reduce_scatter<2 * kBwdGroup, 1, log2i(LN)>(qv, sub);
+    float q1 = qv[0], q2 = qv[1];
+    if constexpr (LN == 8) {  // one value a lane: q1 and q2 meet
+      const float other = __shfl_xor_sync(kFull, qv[0], 4);
+      q1 = sub & 4 ? other : qv[0];
+      q2 = sub & 4 ? qv[0] : other;
+    }
+    // over the warp's channels (lane bits LN, 2 LN, ...)
+    reduce_scatter<2 * kBwdGroup * NS, LN, kLevels>(bc, lane);
+#pragma unroll
+    for (int m = 0; m < kPairs; ++m) {
+      const int pr = kb * kPairs + m;  // (step pr / 2, db or dc)
+      sts<NS>(wp + (tg + pr / 2) * 2 * DS + (pr % 2) * DS + sub * NS,
+              bc + m * NS);
+    }
+    // every lane of the channel has read x, dt of the group's steps (before
+    // the shuffles above)
+    if (writes) {
+      const int t = tg + own;
+      const float x = xs[t * CH + lc], dtt = dts[t * CH + lc];
+      const float dyv = dys[t * CH + lc];
+      xs[t * CH + lc] = fmaf(q1, dtt, dyv * dch);
+      dts[t * CH + lc] = fmaf(q1, x, q2);
+      dd_acc = fmaf(dyv, x, dd_acc);
+    }
+  }
+}
+
+// kStateChunk-step states from scan_fwd<kStates> in, the chunks of
+// kBwdChunk steps from the last to the first
 template <int DS>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
     scan_bwd(const void* __restrict__ xc, const void* __restrict__ dt,
              const void* __restrict__ bm, const void* __restrict__ cm,
              const float* __restrict__ a_log, const float* __restrict__ dd,
@@ -454,131 +655,187 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
              float* __restrict__ dc_part, float* __restrict__ da_part,
              float* __restrict__ dd_part, int s, int di, bool x_bf16,
              bool dt_bf16, bool b_bf16, bool c_bf16) {
-  constexpr int kCh = kBwdThreads / DS;  // channels a block
-  constexpr int kWarpsB = kBwdThreads / 32;
+  constexpr int LN = kLanesB<DS>, NS = DS / LN;
+  constexpr int CH = kThreads / LN;  // channels a block
+  constexpr int kLgBf = log2i(CH * 2 / 16);  // bf16 16-byte pieces a row
+  constexpr int kTile = kBwdChunk * CH;
+  // a stage: x, dt, dy [kBwdChunk][CH] and b, c [kBwdChunk][DS], each in
+  // its own dtype in room for f32
+  constexpr int kOff[5] = {0, kTile, 2 * kTile, 3 * kTile,
+                           3 * kTile + kBwdChunk * DS};
+  constexpr int kBuf = 3 * kTile + 2 * kBwdChunk * DS;  // floats
+  constexpr int kPart = kBwdChunk * 2 * DS;  // [step][db, dc][state]
   extern __shared__ __align__(16) float bwd_smem[];
-  float* xs = bwd_smem;              // [kChunk][kCh]
-  float* dts = xs + kChunk * kCh;    // [kChunk][kCh]
-  float* dys = dts + kChunk * kCh;   // [kChunk][kCh]
-  float* dxs = dys + kChunk * kCh;   // [kChunk][kCh]
-  float* ddts = dxs + kChunk * kCh;  // [kChunk][kCh]
-  float* bs = ddts + kChunk * kCh;   // [kChunk][DS]
-  float* cs = bs + kChunk * DS;      // [kChunk][DS]
-  float* wb = cs + kChunk * DS;      // [warps][kChunk][DS]
-  float* wc = wb + kWarpsB * kChunk * DS;
+  float* work = bwd_smem + kBwdRing * kBuf;  // the bf16 arrays as f32
+  float* wpart = work + kBuf;                 // [warp][kPart]
+  float* bpart = wpart + kWarpsB * kPart;     // [2][kPart]
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cl = tid / DS, n = tid % DS;
-  const int bi = blockIdx.y, c0 = blockIdx.x * kCh, ch = c0 + cl;
+  const int lc = tid / LN, sub = tid % LN;
+  const int bi = blockIdx.y, c0 = blockIdx.x * CH, ch = c0 + lc;
+  const int n0 = sub * NS;
   const bool valid = ch < di;  // the ragged channel edge
-  const int n_chunks = (s + kChunk - 1) / kChunk;
+  const int n_cl = gridDim.x / kBwdCluster, cl = blockIdx.x / kBwdCluster;
+  const int n_chunks = (s + kBwdChunk - 1) / kBwdChunk;
+  const int n_saved = (s + kStateChunk - 1) / kStateChunk;
   const long row0 = (long)bi * s;
-  const float a = valid ? -expf(a_log[(long)ch * DS + n]) : 0.f;
-  const float a2 = a * kLog2e;  // the forward's exponent factor
-  const float dch = valid ? dd[ch] : 0.f;
-  float g = valid && dh_final != nullptr
-                ? dh_final[((long)bi * di + ch) * DS + n]
-                : 0.f;
-  float da_acc = 0.f, dd_acc = 0.f;
-
-  for (int i = n_chunks - 1; i >= 0; --i) {
-    const int t0 = i * kChunk, steps = min(kChunk, s - t0);
-    __syncthreads();  // the previous chunk's buffers are consumed
-    for (int e = tid; e < kChunk * kCh; e += kBwdThreads) {
-      const int u = e / kCh, c = e % kCh;
-      const bool ok = u < steps && c0 + c < di;
-      const long at = (row0 + t0 + u) * di + c0 + c;
-      xs[e] = ok ? ld_f(xc, at, x_bf16) : 0.f;
-      dts[e] = ok ? ld_f(dt, at, dt_bf16) : 0.f;
-      dys[e] = ok ? ld_f(dy, at, x_bf16) : 0.f;
-    }
-    for (int e = tid; e < kChunk * DS; e += kBwdThreads) {
-      const bool ok = e / DS < steps;
-      const long at = (row0 + t0) * DS + e;
-      bs[e] = ok ? ld_f(bm, at, b_bf16) : 0.f;
-      cs[e] = ok ? ld_f(cm, at, c_bf16) : 0.f;
-    }
-    __syncthreads();
-    // the chunk's states as the forward computed them; steps past S have
-    // dt = 0 (a factor of exactly 1) and x = 0, so they leave h unchanged
-    const float h_in =
-        valid ? h_chunks[(((long)bi * n_chunks + i) * di + ch) * DS + n]
-              : 0.f;
-    float hist[kChunk];
-    float hc = h_in;
+  float a[NS], a2[NS], g[NS], da[NS];
 #pragma unroll
-    for (int u = 0; u < kChunk; ++u) {
-      const float x = xs[u * kCh + cl], dtt = dts[u * kCh + cl];
-      const float dtx = dtt * x;
-      hc = fmaf(ex2(dtt * a2), hc, dtx * bs[u * DS + n]);
-      hist[u] = hc;
-    }
-    // the reverse sweep; g becomes dL/dh_t of step u
-#pragma unroll
-    for (int u = kChunk - 1; u >= 0; --u) {
-      const float x = xs[u * kCh + cl], dtt = dts[u * kCh + cl];
-      const float dyv = dys[u * kCh + cl];
-      const float hprev = u > 0 ? hist[u - 1] : h_in;
-      g = fmaf(dyv, cs[u * DS + n], g);
-      float gb = g * (dtt * x);  // -> db over the channels
-      float gc = dyv * hist[u];  // -> dc over the channels
-      const float e = ex2(dtt * a2);
-      const float de = g * hprev * e;
-      float q1 = g * bs[u * DS + n];  // -> d(dt x) over the states
-      float q2 = de * a;              // -> ddt through the decay
-      da_acc = fmaf(de, dtt, da_acc);
-      g *= e;
-#pragma unroll
-      for (int off = DS / 2; off >= 1; off >>= 1) {
-        q1 += __shfl_xor_sync(kFull, q1, off);
-        q2 += __shfl_xor_sync(kFull, q2, off);
-      }
-#pragma unroll
-      for (int off = DS; off < 32; off <<= 1) {
-        gb += __shfl_xor_sync(kFull, gb, off);
-        gc += __shfl_xor_sync(kFull, gc, off);
-      }
-      if (n == 0) {
-        dxs[u * kCh + cl] = fmaf(q1, dtt, dyv * dch);
-        ddts[u * kCh + cl] = fmaf(q1, x, q2);
-        dd_acc = fmaf(dyv, x, dd_acc);
-      }
-      if (lane < DS) {  // the warp's first channel holds the warp's sums
-        wb[(warp * kChunk + u) * DS + n] = gb;
-        wc[(warp * kChunk + u) * DS + n] = gc;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < kChunk * kCh; e += kBwdThreads) {
-      const int u = e / kCh, c = e % kCh;
-      if (u < steps && c0 + c < di) {
-        const long at = (row0 + t0 + u) * di + c0 + c;
-        st_f(dxc, at, x_bf16, dxs[e]);
-        st_f(ddt, at, dt_bf16, ddts[e]);
-      }
-    }
-    for (int e = tid; e < kChunk * DS; e += kBwdThreads) {
-      if (e / DS >= steps) continue;
-      float sb = 0.f, sc = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarpsB; ++w) {
-        sb += wb[w * kChunk * DS + e];
-        sc += wc[w * kChunk * DS + e];
-      }
-      const long at =
-          (((long)bi * gridDim.x + blockIdx.x) * s + t0) * DS + e;
-      db_part[at] = sb;
-      dc_part[at] = sc;
-    }
+  for (int j = 0; j < NS; ++j) {
+    a[j] = valid ? -expf(a_log[(long)ch * DS + n0 + j]) : 0.f;
+    a2[j] = a[j] * kLog2e;  // the forward's exponent factor
+    g[j] = valid && dh_final != nullptr
+               ? dh_final[((long)bi * di + ch) * DS + n0 + j]
+               : 0.f;
+    da[j] = 0.f;
   }
+  const float dch = valid ? dd[ch] : 0.f;
+  float dd_acc = 0.f;
+
+  const bool bf16[5] = {x_bf16, dt_bf16, x_bf16, b_bf16, c_bf16};
+  const bool any_bf16 = x_bf16 || dt_bf16 || b_bf16 || c_bf16;
+  // chunk ci into stage st, 16 bytes a piece, as scan_fwd stages its chunks
+  auto issue = [&](int ci, float* st) {
+    const int t0 = ci * kBwdChunk, steps = min(kBwdChunk, s - t0);
+    const void* src[5] = {xc, dt, dy, bm, cm};
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int lg = bf16[q] ? kLgBf : kLgBf + 1, v = bf16[q] ? 8 : 4;
+      char* dst = reinterpret_cast<char*>(st + kOff[q]);
+      for (int p = tid; p < kBwdChunk << lg; p += kThreads) {
+        const int t = p >> lg, col = (p & ((1 << lg) - 1)) * v;
+        const int n = t < steps ? min(v, di - c0 - col) : 0;
+        stage16(dst + p * 16, src[q], (row0 + t0 + t) * di + c0 + col, n,
+                bf16[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 3; q < 5; ++q) {
+      const int v = bf16[q] ? 8 : 4;
+      char* dst = reinterpret_cast<char*>(st + kOff[q]);
+      for (int p = tid; p * v < kBwdChunk * DS; p += kThreads)
+        stage16(dst + p * 16, src[q], (row0 + t0) * DS + p * v,
+                steps * DS - p * v, bf16[q]);
+    }
+  };
+  // the cluster's sum of chunk ci's db, dc (in every block's bpart[buf]):
+  // this block's 1 / kBwdCluster of the values, over the ranks in order
+  auto reduce_chunk = [&](int ci, int buf) {
+    const int t0 = ci * kBwdChunk;
+    constexpr int kShare = kPart / kBwdCluster;
+    for (int e = rank * kShare + tid; e < (rank + 1) * kShare;
+         e += kThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < kBwdCluster; ++r)
+        sum += *cluster.map_shared_rank(bpart + buf * kPart + e, r);
+      const int u = e / (2 * DS), n = e % DS;
+      if (t0 + u < s) {
+        const long at = (((long)bi * n_cl + cl) * s + t0 + u) * DS + n;
+        ((e / DS) % 2 ? dc_part : db_part)[at] = sum;
+      }
+    }
+  };
+
+  // chunk i (from the end) goes to stage i % kBwdRing; one commit group a
+  // chunk (empty once every chunk is issued)
+#pragma unroll
+  for (int i = 0; i < kBwdRing - 1; ++i) {
+    if (i < n_chunks) issue(n_chunks - 1 - i, bwd_smem + i * kBuf);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_chunks; ++i) {
+    const int ci = n_chunks - 1 - i;
+    const int t0 = ci * kBwdChunk, steps = min(kBwdChunk, s - t0);
+    float* cur = bwd_smem + (i % kBwdRing) * kBuf;
+    cp_async_wait<kBwdRing - 2>();  // this thread's pieces of chunk i
+    __syncthreads();  // everyone's; chunk i-1's buffers are consumed
+    const int ahead = i + kBwdRing - 1;
+    if (ahead < n_chunks)
+      issue(n_chunks - 1 - ahead, bwd_smem + (ahead % kBwdRing) * kBuf);
+    cp_async_commit();
+    if (any_bf16) {
+#pragma unroll
+      for (int q = 0; q < 5; ++q) {
+        if (!bf16[q]) continue;
+        const int n = q < 3 ? kTile : kBwdChunk * DS;
+        const char* raw = reinterpret_cast<const char*>(cur + kOff[q]);
+        for (int p = tid; p * 8 < n; p += kThreads)
+          widen8(*reinterpret_cast<const int4*>(raw + p * 16),
+                 work + kOff[q] + p * 8);
+      }
+      __syncthreads();
+    }
+    float* view[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) view[q] = (bf16[q] ? work : cur) + kOff[q];
+    float* wp = wpart + warp * kPart;
+    // the sub-chunks of this chunk that hold steps < S, last first
+#pragma unroll 1
+    for (int ts = ((steps - 1) / kStateChunk) * kStateChunk; ts >= 0;
+         ts -= kStateChunk) {
+      float hs[NS];
+      const long at =
+          (((long)bi * n_saved + (t0 + ts) / kStateChunk) * di + ch) * DS +
+          n0;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) hs[j] = valid ? h_chunks[at + j] : 0.f;
+      bwd_sub<DS, LN, CH>(view[0], view[1], view[2], view[3], view[4], wp,
+                          ts, lc, sub, lane, hs, a, a2, dch, g, da, dd_acc);
+    }
+    __syncthreads();  // dx, ddt over x, dt; every warp's partial written
+    const int lg = x_bf16 ? kLgBf : kLgBf + 1, v = x_bf16 ? 8 : 4;
+    for (int p = tid; p < kBwdChunk << lg; p += kThreads) {
+      const int t = p >> lg, col = (p & ((1 << lg) - 1)) * v;
+      const int n = t < steps ? min(v, di - c0 - col) : 0;
+      if (n > 0)
+        store16(dxc, (row0 + t0 + t) * di + c0 + col, n, x_bf16,
+                view[0] + t * CH + col);
+    }
+    const int lgt = dt_bf16 ? kLgBf : kLgBf + 1, vt = dt_bf16 ? 8 : 4;
+    for (int p = tid; p < kBwdChunk << lgt; p += kThreads) {
+      const int t = p >> lgt, col = (p & ((1 << lgt) - 1)) * vt;
+      const int n = t < steps ? min(vt, di - c0 - col) : 0;
+      if (n > 0)
+        store16(ddt, (row0 + t0 + t) * di + c0 + col, n, dt_bf16,
+                view[1] + t * CH + col);
+    }
+    // the previous chunk's cluster sum: every block wrote its bpart and
+    // arrived; after the wait, bpart[i % 2] is read by no block any more
+    if (i > 0) {
+      cluster_wait();
+      reduce_chunk(ci + 1, (i - 1) & 1);
+    }
+    for (int e = tid; e < kPart; e += kThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarpsB; ++w) sum += wpart[w * kPart + e];
+      bpart[(i & 1) * kPart + e] = sum;
+    }
+    cluster_arrive();
+  }
+  cluster_wait();
+  reduce_chunk(0, (n_chunks - 1) & 1);
+  // no block leaves while another reads its shared memory
+  cluster_arrive();
+  cluster_wait();
+
+  // da over the sequence; dd over the channel's lanes' steps
+#pragma unroll
+  for (int off = 1; off < LN; off *= 2)
+    dd_acc += __shfl_xor_sync(kFull, dd_acc, off);
   if (valid) {
-    da_part[((long)bi * di + ch) * DS + n] = da_acc;
-    if (n == 0) dd_part[(long)bi * di + ch] = dd_acc;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      da_part[((long)bi * di + ch) * DS + n0 + j] = da[j];
+    if (sub == 0) dd_part[(long)bi * di + ch] = dd_acc;
   }
 }
 
-// The second pass: db, dc [B, S, DS] summed over the blocks' partials, and
-// da_log [di, DS], dd [di] over the sequences', each in a fixed order.
+// The second pass: db, dc [B, S, DS] summed over the clusters' partials,
+// and da_log [di, DS], dd [di] over the sequences', each in a fixed order.
 template <int DS>
 __global__ void __launch_bounds__(256)
     scan_bwd_reduce(const float* __restrict__ db_part,
@@ -588,14 +845,14 @@ __global__ void __launch_bounds__(256)
                     const float* __restrict__ a_log, void* __restrict__ db,
                     void* __restrict__ dc, float* __restrict__ da_log,
                     float* __restrict__ dd_out, int bsz, int s, int di,
-                    int nblk, bool b_bf16, bool c_bf16) {
+                    int n_cl, bool b_bf16, bool c_bf16) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long per_seq = (long)s * DS;
   if (idx < bsz * per_seq) {
     const long bi = idx / per_seq, rest = idx % per_seq;
-    const long base = bi * nblk * per_seq + rest;
+    const long base = bi * n_cl * per_seq + rest;
     float sb = 0.f, sc = 0.f;
-    for (int k = 0; k < nblk; ++k) {
+    for (int k = 0; k < n_cl; ++k) {
       sb += db_part[base + k * per_seq];
       sc += dc_part[base + k * per_seq];
     }
@@ -673,12 +930,14 @@ cudaError_t launch_bwd(const void* xc, const void* dt, const void* b,
                        float* scratch, int bsz, int s, int di, bool x_bf16,
                        bool dt_bf16, bool b_bf16, bool c_bf16,
                        cudaStream_t stream) {
-  constexpr int kCh = kBwdThreads / DS;
-  constexpr int smem = (5 * kChunk * kCh + 2 * kChunk * DS +
-                        2 * (kBwdThreads / 32) * kChunk * DS) *
-                       4;
-  const int nblk = (di + kCh - 1) / kCh;
-  const long part = (long)bsz * nblk * s * DS;
+  // the ring and the f32 work buffer, the warps' and the block's partials
+  constexpr int CH = kThreads / kLanesB<DS>;  // channels a block
+  constexpr int kBuf = 3 * kBwdChunk * CH + 2 * kBwdChunk * DS;
+  constexpr int kPart = kBwdChunk * 2 * DS;
+  constexpr int smem = ((kBwdRing + 1) * kBuf + (kWarpsB + 2) * kPart) * 4;
+  const int nblk = (di + CH - 1) / CH;
+  const int n_cl = (nblk + kBwdCluster - 1) / kBwdCluster;
+  const long part = (long)bsz * n_cl * s * DS;
   float* db_part = scratch;
   float* dc_part = db_part + part;
   float* da_part = dc_part + part;
@@ -686,15 +945,28 @@ cudaError_t launch_bwd(const void* xc, const void* dt, const void* b,
   cudaError_t err = cudaFuncSetAttribute(
       scan_bwd<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  scan_bwd<DS><<<dim3(nblk, bsz), kBwdThreads, smem, stream>>>(
-      xc, dt, b, c, a_log, d, dy, h_chunks, dh_final, dxc, ddt, db_part,
-      dc_part, da_part, dd_part, s, di, x_bf16, dt_bf16, b_bf16, c_bf16);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_cl * kBwdCluster), (unsigned)bsz);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kBwdCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, scan_bwd<DS>, xc, dt, b, c, a_log, d, dy,
+                           h_chunks, dh_final, dxc, ddt, db_part, dc_part,
+                           da_part, dd_part, s, di, x_bf16, dt_bf16, b_bf16,
+                           c_bf16);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long n = std::max((long)bsz * s * DS, (long)di * DS);
   scan_bwd_reduce<DS><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       db_part, dc_part, da_part, dd_part, a_log, db, dc, da_log, dd_out, bsz,
-      s, di, nblk, b_bf16, c_bf16);
+      s, di, n_cl, b_bf16, c_bf16);
   return cudaGetLastError();
 }
 
@@ -716,7 +988,7 @@ extern "C" int repro_mamba_scan(const void* xc, const void* dt,
 }
 
 // The training forward: the same kernel, also writing h_chunks
-// [B, ceil(S / 64), di, ds] f32, the state entering each 64-step chunk.
+// [B, ceil(S / 16), di, ds] f32, the state entering every 16th step.
 extern "C" int repro_mamba_scan_fwd_states(
     const void* xc, const void* dt, const void* b, const void* c,
     const void* a_log, const void* d, void* y, void* h_final, void* h_chunks,
@@ -732,8 +1004,9 @@ extern "C" int repro_mamba_scan_fwd_states(
 
 // The backward: dy in xc's dtype, dh_final f32 [B, di, ds] or null (zero);
 // dxc, ddt, db, dc in their inputs' dtypes, da_log [di, ds] and dd [di]
-// f32; scratch f32 of 2 * B * nblk * S * ds + B * di * (ds + 1) floats,
-// nblk = ceil(di / (256 / ds)).  Two launches on one stream.
+// f32; scratch f32 of 2 * B * ncl * S * ds + B * di * (ds + 1) floats,
+// ncl = ceil(ceil(di / (256 / min(8, ds))) / 8) clusters.  Two launches on
+// one stream.
 extern "C" int repro_mamba_scan_bwd(
     const void* xc, const void* dt, const void* b, const void* c,
     const void* a_log, const void* d, const void* dy, const void* h_chunks,

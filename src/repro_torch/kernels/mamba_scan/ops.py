@@ -11,10 +11,11 @@ so there is no ``h0``.  Any S runs: there is no chunk to divide it.
 
 Training: when a CUDA input requires grad, ``mamba_scan`` goes through
 :class:`MambaScanFn`, whose forward runs the same kernel also writing the
-state entering each 64-step chunk, and whose backward is the hand-written
-``repro_mamba_scan_bwd`` (each chunk's states recomputed from its entry
-state, then swept in reverse; the sums over channels, batch and sequence
-reduced deterministically in a second pass).  On the CPU autograd
+state entering every 16th step, and whose backward is the hand-written
+``repro_mamba_scan_bwd`` (each 16 steps' states recomputed from the saved
+one, then swept in reverse; its sums over channels taken in clusters of
+blocks and finished, with those over batch and sequence, in a second
+pass, all in a fixed order).  On the CPU autograd
 differentiates the plain version; :func:`mamba_scan_bwd_plain` writes the
 same reverse recursion out in PyTorch, the kernel's yardstick on the card.
 """
@@ -34,10 +35,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the two kernels)
 launches = 0
 launches_bwd = 0
-#: the chunk of the training forward's saved states and the backward's
-#: threads a block (``kChunk`` and ``kBwdThreads`` in the source)
-STATE_CHUNK = 64
+#: the steps between the training forward's saved states, and the
+#: backward's threads a block, lanes a channel (at most; d_state 4 takes 4)
+#: and blocks a cluster (``kStateChunk``, ``kThreads``, ``kBwdLanes`` and
+#: ``kBwdCluster`` in the source): its scratch holds a partial of db and dc
+#: a cluster
+STATE_CHUNK = 16
 BWD_THREADS = 256
+BWD_LANES = 8
+BWD_CLUSTER = 8
 
 
 def mamba_scan_plain(xc: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -185,7 +191,7 @@ def _launch_fwd(xc, dt, b, c, a_log, d, h_chunks):
 
 def mamba_scan_train_fwd(xc, dt, b, c, a_log, d):
     """The training forward on the card: (y, h_final, h_chunks), h_chunks
-    [B, ceil(S/64), di, ds] f32 the state entering each 64-step chunk."""
+    [B, ceil(S/16), di, ds] f32 the state entering every 16th step."""
     _check_cuda_inputs(xc, dt, b, c, a_log, d)
     bsz, s, di = xc.shape
     h_chunks = torch.empty((bsz, -(-s // STATE_CHUNK), di, b.shape[2]),
@@ -217,8 +223,9 @@ def mamba_scan_bwd(xc, dt, b, c, a_log, d, h_chunks, dy,
         raise ValueError(f"mamba_scan_bwd: dh_final "
                          f"{tuple(dh_final.shape)} {dh_final.dtype}")
     grads = [torch.empty_like(t) for t in (xc, dt, b, c, a_log, d)]
-    nblk = -(-di // (BWD_THREADS // ds))
-    scratch = torch.empty(2 * bsz * nblk * s * ds + bsz * di * (ds + 1),
+    nblk = -(-di // (BWD_THREADS // min(BWD_LANES, ds)))  # channel blocks
+    n_cl = -(-nblk // BWD_CLUSTER)                        # their clusters
+    scratch = torch.empty(2 * bsz * n_cl * s * ds + bsz * di * (ds + 1),
                           dtype=torch.float32, device=xc.device)
     stream = torch.cuda.current_stream(xc.device).cuda_stream
     err = build.library().repro_mamba_scan_bwd(

@@ -741,14 +741,21 @@ def test_cuda_new_families_match_cpu(cuda_device, arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,kv,hd", [(2, 130, 16, 8, 128),
-                                         (1, 63, 24, 24, 64),
-                                         (2, 65, 4, 2, 32), (1, 1, 4, 4, 32)])
+@pytest.mark.parametrize("b,s,h,kv,hd", [
+    (2, 130, 16, 8, 128), (1, 63, 24, 24, 64), (2, 65, 4, 2, 32),
+    (1, 1, 4, 4, 32),
+    # S across the 64-row wgmma tiles and 128-row blocks, G = H / KV of 1,
+    # 2 and 4 at each head dimension
+    (1, 64, 8, 4, 128), (1, 127, 8, 2, 128), (1, 128, 4, 4, 128),
+    (1, 129, 16, 4, 128), (1, 1000, 16, 8, 128), (1, 65, 8, 8, 64),
+    (1, 129, 8, 2, 64), (1, 64, 8, 2, 64), (1, 127, 4, 1, 32),
+    (1, 128, 4, 4, 32), (1, 63, 8, 4, 32)])
 def test_cuda_flash_attention_bwd_matches_plain(cuda_device, dtype, b, s, h,
                                                 kv, hd):
     """The training forward (o and lse) and the backward against their
     plain versions; dq/dk/dv within 2e-2 (bf16) or 1e-4 (f32) of the
-    largest |grad| of the three (dq and dk are exactly zero at S=1)."""
+    largest |grad| of the three (dq and dk are exactly zero at S=1); a
+    second launch bit-equal."""
     g = torch.Generator(device=cuda_device).manual_seed(s)
     q, do = (_rand(g, cuda_device, dtype, b, s, h, hd) for _ in range(2))
     k, v = (_rand(g, cuda_device, dtype, b, s, kv, hd) for _ in range(2))
@@ -767,15 +774,27 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda_device, dtype, b, s, h,
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("act_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s", [1, 31, 64, 200])
-def test_cuda_mamba_scan_bwd_matches_plain(cuda_device, act_dtype, s):
+@pytest.mark.parametrize("dtypes", [(_F32,) * 4, (_BF, _F32, _BF, _BF),
+                                    (_BF, _BF, _F32, _BF),
+                                    (_F32, _BF, _BF, _F32)])
+@pytest.mark.parametrize("s", [1, 4, 15, 16, 17, 31, 32, 33, 64, 200])
+@pytest.mark.parametrize("di,ds", [(300, 16), (257, 4), (65, 8)])
+def test_cuda_mamba_scan_bwd_matches_plain(cuda_device, dtypes, s, di, ds):
+    """The scan backward against its plain version: S across the kernel's
+    4-step groups, 16-step saved states and 32-step chunks; di off its
+    blocks' 32 (64 at ds 4) channels and its clusters' 256; xc, dt, b, c
+    each bf16 or f32; a second launch bit-equal."""
     g = torch.Generator(device=cuda_device).manual_seed(s)
-    xc, dt, b, c, a_log, d = _scan_inputs(g, cuda_device, 2, s, 300, 16,
-                                          act_dtype)
-    dy = _rand(g, cuda_device, act_dtype, 2, s, 300)
-    dh = _rand(g, cuda_device, torch.float32, 2, 300, 16)
+    args = _scan_inputs(g, cuda_device, 2, s, di, ds, _F32)
+    xc, dt, b, c = (t.to(dt_) for t, dt_ in zip(args[:4], dtypes))
+    a_log, d = args[4:]
+    act_dtype = _BF if _BF in dtypes else _F32
+    dy = _rand(g, cuda_device, xc.dtype, 2, s, di)
+    dh = _rand(g, cuda_device, torch.float32, 2, di, ds)
     y, hf, hc = ms.mamba_scan_train_fwd(xc, dt, b, c, a_log, d)
     y_s, hf_s = ms.mamba_scan(xc, dt, b, c, a_log, d)
     assert torch.equal(y, y_s) and torch.equal(hf, hf_s)

@@ -55,7 +55,7 @@ def test_flash_attention_bwd_plain_against_jax_grad(b, s, h, kvh, hd):
                                    atol=1e-5 * scale, rtol=0)
 
 
-@pytest.mark.parametrize("s", [1, 7, 16, 37])
+@pytest.mark.parametrize("s", [1, 7, 16, 17, 32, 37])
 def test_mamba_scan_bwd_plain_against_jax_grad(s):
     rng = np.random.default_rng(s)
     bsz, di, ds = 2, 12, 8
@@ -89,10 +89,34 @@ def test_mamba_scan_bwd_plain_against_jax_grad(s):
 
 
 def test_scan_backward_constants_match_the_source():
-    """The wrapper sizes the saved chunk states and the backward's
-    scratch from ``kChunk`` and ``kBwdThreads`` of the CUDA source."""
+    """The wrapper sizes the saved states and the backward's scratch from
+    ``kStateChunk``, ``kThreads``, ``kBwdLanes`` and ``kBwdCluster`` of the
+    CUDA source: the states every STATE_CHUNK steps, a db/dc partial a
+    cluster of BWD_CLUSTER blocks of BWD_THREADS / min(BWD_LANES, ds)
+    channels."""
     src = (Path(ms.__file__).parent / "csrc" / "mamba_scan.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (kChunk|kBwdThreads) = (\d+);",
-                             src))
-    assert int(consts["kChunk"]) == ms.STATE_CHUNK
-    assert int(consts["kBwdThreads"]) == ms.BWD_THREADS
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kStateChunk|kThreads|kBwdLanes|kBwdCluster) = "
+        r"(\d+);", src)}
+    assert consts == {"kStateChunk": ms.STATE_CHUNK,
+                      "kThreads": ms.BWD_THREADS,
+                      "kBwdLanes": ms.BWD_LANES,
+                      "kBwdCluster": ms.BWD_CLUSTER}
+
+
+_ATOMICS = re.compile(r"\batomic[A-Z]\w*\s*\(|\bred\.|\batom\.|"
+                      r"cp\.reduce\.async\.bulk")
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "mamba_scan"])
+def test_backward_kernels_use_no_atomics(kernel):
+    """No atomic operation on a value in the training backwards (atomicAdd,
+    PTX red. / atom., cp.reduce.async.bulk): every sum is taken in a fixed
+    order, which the bit-equal resume of a training run depends on."""
+    ops = {"flash_attention": fa, "mamba_scan": ms}[kernel]
+    src = (Path(ops.__file__).parent / "csrc" / f"{kernel}.cu").read_text()
+    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+    backward = code[code.index("_bwd"):]  # the first backward kernel on
+    assert not _ATOMICS.search(backward)
+    # the pattern does find one
+    assert _ATOMICS.search("atomicAdd(p, x); red.global.add.f32 [p], x;")
