@@ -92,12 +92,15 @@ any failure raises and the process exits non-zero:
      400-request stream, each writing a Chrome trace (validated) and a
      metrics file under ``build/``; the kernels' launch counts read
      around the phase (none of them runs there);
-  5c. the router's scale-up on the card (no kernel of the port runs
-     there; each part's launch counts are read around it and must be 0):
+  5c. the router's scale-up on the card (no model kernel runs there;
+     each part's launch counts are read around it and must be 0 but the
+     simulator's round loop in (a)'s jax leg):
      (a) benchmarks/bench_batched_rl.py's schedule (V100 x 4, the
-     Table-1 mixture, 200 requests at 20/s, 16 episodes) trained three
+     Table-1 mixture, 200 requests at 20/s, 16 episodes) trained four
      ways -- sequential ``rl.train``, ``train_router`` with 8
-     environments over the ``py`` stepper and over the ``vec`` pool --
+     environments over the ``py`` stepper, the ``vec`` pool and the
+     device-resident ``jax`` pool (its ticks held to py's; the round-loop
+     kernel launched for spans of 8 ticks or more) --
      with decisions/s, learn steps, the vec-trained router's held-out
      E2E beside round robin's and mixing's, and one ``act_batch`` of 8
      rows and one learn step of 256 rows timed and profiled; (b) ``train_router``
@@ -110,6 +113,24 @@ any failure raises and the process exits non-zero:
      (``OnlineTrainer`` learning on the card) and by mixing, with P95
      E2E overall and after the flip (virtual clock) and the wall time of
      each arm;
+  5d. the device-resident simulator (``backend="jax"``, the round loop
+     of ``_run_rounds`` as one launch of the ``sim_rounds`` kernel):
+     (ii) benchmarks/bench_jaxsim.py's schedule (V100 x 4, 60 requests an
+     episode at 20/s, spans up to 256 ticks, jsq) at 32 episodes through
+     py, vec, jax (every span through the kernel) and the hybrid (spans
+     of 8 ticks or more), equal request by request, episodes/s of each,
+     the device and host call counts, per call the dispatch's host wall
+     against the kernel's device time (CUDA events) and the kernel's
+     share of the wall; then 512 episodes (2048 lanes) through vec, jax
+     and the hybrid, the launch counts zeroed before each jax and hybrid
+     run and held to its pool's device calls; (i) the kernel against its
+     plain version on the card on the three staged calls of the 32-episode jax run with the
+     most active lanes (every decision, clock and time bit-equal, the
+     backlog sums and span buckets within 1e-9 of their scale, a second
+     launch bit-equal), one of them timed against its bound (the staged
+     bytes read once and written once); (iii) ``featurize_jax_many`` on
+     the card bit-equal to ``featurize_vec_many`` at every decision point
+     of a seeded episode pair, four flag sets;
   6. the serving gateway: full-width llama-2-7b (32 layers, bf16, seeded
      random weights) on two engines with int8 KV caches (8 slots x 2048
      tokens), one seeded stream of 12 requests served through the port's
@@ -135,12 +156,21 @@ any failure raises and the process exits non-zero:
      the same for qwen3-0.6b (bf16 cache; prompts 128-896, decode up to
      8 x 1024), beside phase 5's walls; (c)
      ``serving.fidelity.run_fidelity`` replays one 12-request stream
-     through the py and vec simulators and two llama-2-7b engines (8
-     slots x 2048) under mixing, on the V100 profile and on (a)'s: vec
-     equals py and the engine's P95 E2E is within bench_fidelity's band
-     (0.35) of py's on both; (d) the
+     through the py, vec and jax simulators and two llama-2-7b engines
+     (8 slots x 2048) under mixing, on the V100 profile and on (a)'s: vec
+     agrees with py and jax with vec (every report field equal, the TBT
+     percentiles and mean within 1e-12 relative, the steppers' own
+     contract) and the engine's P95 E2E is within bench_fidelity's band
+     (0.35) of py's on both; the gateway advances one tick a call, under
+     the jax pool's 8-tick minimum span, so the jax leg runs the pool's
+     inherited numpy rounds (asserted: no device call, some host calls),
+     not the kernel; (d) the
      saturating stream on one qwen3-0.6b engine x 2 slots: both the
      simulator and the engine preempt, and every request completes;
+     (e) the reduced qwen3-0.6b of the card tests' calibration (2
+     layers, f32) decoding at 1024 resident tokens as 1, 2, 4 and 8
+     slots: host ms a step (min and median of 20, card synchronised),
+     device busy ms and kernels a step (torch.profiler);
   9. the MoE and MLA families at full width (bf16, seeded random
      weights; phase 8's weights freed first, each model freed before
      the next): (a) deepseek-moe-16b (28 layers, the first dense; 64
@@ -160,8 +190,11 @@ any failure raises and the process exits non-zero:
      jamba-v0.1-52b cut to one period (8 of 32 layers, widths intact,
      13.30 B), each check's launch counts asserted (jamba's scan
      included); the error is asserted within 5% of max |logit| for the
-     models without routed experts and printed with the top-1
-     agreement for the two with them;
+     models without routed experts; for the two with them the tokens
+     whose top-k expert set differs from the prefill's are counted a
+     layer, the error is printed with the top-1 agreement, and the 5%
+     bound is asserted on the same steps rerun with the prefill's experts
+     forced;
   10. LM training (phase 9's weights freed first), each part's launch
      counts read around it: (a) one f32 AdamW train step of phase 4's
      seven reduced families on the card (the kernels and their
@@ -188,6 +221,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -216,6 +250,7 @@ FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DA_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu")
 MS_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
+SIM_SOURCE = "src/repro_torch/kernels/sim_rounds/csrc/sim_rounds.cu"
 # name, source, the TPU kernel it replaces
 KERNELS = (
     ("flash_attention", FA_SOURCE,
@@ -231,6 +266,9 @@ KERNELS = (
      "src/repro/kernels/flash_attention/kernel.py:68"),
     ("mamba_scan_bwd", MS_SOURCE,
      "src/repro/kernels/mamba_scan/kernel.py:55"),
+    # the device-resident simulator's round loop: no Pallas kernel, it
+    # stands for the XLA program of the reference's jitted while_loop
+    ("sim_rounds", SIM_SOURCE, "src/repro/core/jaxsim.py:352"),
 )
 # llama-2-7b's decode attention: n_slots=8, cache 2048, MHA 32 x 128
 LLAMA_DECODE = dict(b=8, s=2048, h=32, kvh=32, hd=128)
@@ -322,7 +360,7 @@ def log(*a):
 
 def reset_launches(m):
     m.fa.launches = m.da.launches = m.da.launches_int8 = m.ms.launches = 0
-    m.fa.launches_bwd = m.ms.launches_bwd = 0
+    m.fa.launches_bwd = m.ms.launches_bwd = m.sim_ops.launches = 0
 
 
 def read_launches(m) -> dict:
@@ -331,7 +369,8 @@ def read_launches(m) -> dict:
             "decode_attention_int8": m.da.launches_int8,
             "mamba_scan": m.ms.launches,
             "flash_attention_bwd": m.fa.launches_bwd,
-            "mamba_scan_bwd": m.ms.launches_bwd}
+            "mamba_scan_bwd": m.ms.launches_bwd,
+            "sim_rounds": m.sim_ops.launches}
 
 
 def gpu_line() -> str:
@@ -1449,6 +1488,10 @@ def router_phase(torch, np, m):
 # benchmarks/bench_batched_rl.py's schedule: V100 x 4, the Table-1 mixture,
 # 200 requests at 20/s, 16 episodes, 8 environments for the batched runs
 SCALE = dict(n=200, rate=20.0, m=4, episodes=16, n_envs=8)
+# the batched trainer's simulators: the Python stepper, the numpy pool and
+# the device-resident pool (the registry's hybrid: spans of 8 ticks or
+# more through the round-loop kernel)
+BATCHED_BACKENDS = ("py", "vec", "jax")
 # examples/train_router_rl.py --hetero: the scenario stream, 400 requests
 # an episode, clusters up to 6 wide
 HETERO = dict(n=400, m_max=6)
@@ -1493,10 +1536,11 @@ def _run_line(name, hist, wall, steps):
 
 
 def scale_up_throughput(torch, np, m):
-    """Part (a): the reference bench's schedule three ways on the card --
+    """Part (a): the reference bench's schedule four ways on the card --
     sequential ``rl.train``, ``train_router`` batched over the ``py``
-    stepper and over the ``vec`` pool -- then one ``act_batch`` of 8
-    rows and one learn step of 256 rows, timed and profiled."""
+    stepper, the ``vec`` pool and the device-resident ``jax`` pool (its
+    decisions held to py's) -- then one ``act_batch`` of 8 rows and one
+    learn step of 256 rows of the vec run's agent, timed and profiled."""
     prof, wl = m.profiles.V100_LLAMA2_7B, m.wl
 
     def reqs(seed):
@@ -1514,9 +1558,9 @@ def scale_up_throughput(torch, np, m):
         agent=agent))
     res["sequential"] = _run_line("sequential rl.train", out["history"],
                                   wall, agent.steps)
-    acts, learn_host = {}, {}
-    for backend in ("py", "vec"):
-        agent = m.rl.make_agent(cfg, device="cuda")
+    acts, learn_host, agents = {}, {}, {}
+    for backend in BATCHED_BACKENDS:
+        agent = agents[backend] = m.rl.make_agent(cfg, device="cuda")
         act_batch, learn = agent.act_batch, agent.learn
         host = []
 
@@ -1553,13 +1597,16 @@ def scale_up_throughput(torch, np, m):
             f"{len(host)} in {sum(host):.3f} s, median "
             f"{_median_ms(host):.3f} ms")
     seq = res["sequential"]["decisions_per_s"]
-    for backend in ("py", "vec"):
+    for backend in BATCHED_BACKENDS:
         r = res[f"batched_{backend}"]
         r["vs_sequential"] = r["decisions_per_s"] / seq
         log(f"  batched {backend} / sequential decisions/s: "
             f"{r['vs_sequential']:.2f}x (one call, one card)")
     res["py_vec_same_ticks"] = (res["batched_py"]["ticks"]
                                 == res["batched_vec"]["ticks"])
+    assert res["batched_jax"]["ticks"] == res["batched_py"]["ticks"], (
+        "the jax pool's decisions diverged from py's")
+    agent = agents["vec"]
     # the bench's quality check: the vec-trained router greedy on its
     # held-out episodes, beside round robin and the impact heuristic
     # (mixing) on the same streams
@@ -1735,7 +1782,8 @@ def scale_up_online(torch, np, m):
 
 def scale_up_phase(torch, np, m):
     """Phase 5c: parts (a)-(c), each path's launch counts reset before it
-    and read after it (no kernel of the port runs on this path)."""
+    and read after it (no model kernel runs on this path; the simulator's
+    round loop runs in part (a)'s jax leg only)."""
     out, launches = {}, {}
     for name, part in (("batched", scale_up_throughput),
                        ("hetero", scale_up_hetero),
@@ -1747,10 +1795,339 @@ def scale_up_phase(torch, np, m):
         torch.cuda.synchronize()
         launches[name] = read_launches(m)
         out[name]["part_s"] = time.perf_counter() - t0
-        assert not any(launches[name].values()), launches
+        assert not any(v for k, v in launches[name].items()
+                       if k != "sim_rounds"), launches
+        assert (launches[name]["sim_rounds"] > 0) == (name == "batched"), \
+            launches
         log(f"  part {name}: {out[name]['part_s']:.1f} s; launches "
             f"{launches[name]}")
     return launches, out
+
+
+# -- phase 5d: the device-resident simulator ----------------------------------
+
+# benchmarks/bench_jaxsim.py's schedule (:46-52): V100 x 4 instances, 60
+# requests an episode at 20/s, spans of at most 256 ticks, jsq routing; 32
+# episodes through every backend, then 512 episodes (2048 lanes, the scale
+# a device pool is for) through the pools
+SIM_M, SIM_N, SIM_RATE, SIM_SPAN_CAP = 4, 60, 20.0, 256
+SIM_EPISODES, SIM_WIDE = 32, 512
+SIM_MAX_T = 36_000.0
+# the staged calls of the 32-episode jax run held kernel against plain (the
+# ones with the most active lanes); the first is the one timed
+SIM_CAPTURES = 3
+# the backlog sums, span buckets and lane_ivv: a summation order apart
+# (jaxsim.py:28-34); every other field bit for bit
+SIM_REWARD_TOL = 1e-9
+SIM_REWARD = ("bk_s", "bk_t", "d_lane", "lane_ivv")
+# featurize_jax_many's check: the reference test's seeded episode pair
+FEAT_STEPS = 25
+FEAT_FLAGS = ({}, {"include_hardware": True},
+              {"include_cache": True, "include_health": True},
+              {"include_impact": False, "include_hardware": True})
+
+
+def sim_reqs(m, ep):
+    return m.wl.to_requests(m.wl.generate(SIM_N, seed=900 + ep),
+                            rate=SIM_RATE, seed=1900 + ep)
+
+
+def sim_drive_py(m, policy, rs):
+    """benchmarks/bench_vecsim.py's ``drive`` over one ``py`` cluster,
+    with the pooled drive's span rule (``vecsim.span_ticks``)."""
+    c = m.sim.Cluster(m.profiles.V100_LLAMA2_7B, SIM_M, backend="py")
+    pending = sorted(rs, key=lambda r: r.arrival)
+    i = 0
+    while len(c.completed) < len(rs) and c.t < SIM_MAX_T:
+        while i < len(pending) and pending[i].arrival <= c.t:
+            c.enqueue(pending[i])
+            i += 1
+        for _ in range(64):
+            if not c.central:
+                break
+            act = policy.act(c)
+            if act is None or act >= c.m:
+                break
+            c.route(act)
+        for _ in range(m.vecsim.span_ticks(c, pending, i, SIM_SPAN_CAP)):
+            c.advance()
+
+
+def sim_stamps(all_reqs):
+    return [[(r.finished, r.first_token, r.prefill_done, r.instance,
+              r.preemptions, r.decoded, r.prefilled, r.phase.name,
+              len(r.token_times)) for r in rs] for rs in all_reqs]
+
+
+class SimClock:
+    """Instruments one jax pool's run: the host wall of every dispatch
+    (staging, copies, launch, sync, writeback) and of its writeback
+    (which replays each completion into its request object, as the vec
+    pool does), CUDA events around every kernel launch, and copies of
+    the staged blocks of the calls with the most active lanes
+    (``captures``; the copies are made before the launch, outside its
+    events)."""
+
+    def __init__(self, torch, m, pool, captures: int = 0):
+        self.torch, self.m, self.pool = torch, m, pool
+        self.captures, self.want = captures, captures
+        self.host, self.back, self.events, self.caps = [], [], [], []
+        self._n = 0
+        self._launch = m.sim_ops.sim_rounds
+        self._dispatch = pool._dispatch
+        self._writeback = pool._writeback
+
+    def dispatch(self, active, target, done):
+        self._n = int(active.sum())
+        t0 = time.perf_counter()
+        self._dispatch(active, target, done)
+        self.host.append(time.perf_counter() - t0)
+
+    def writeback(self, *args):
+        t0 = time.perf_counter()
+        self._writeback(*args)
+        self.back.append(time.perf_counter() - t0)
+
+    def launch(self, layout, fb, ib):
+        if self.want and (len(self.caps) < self.want
+                          or self._n > self.caps[-1][0]):
+            self.caps.append((self._n, layout, fb[:layout.n_f].clone(),
+                              ib[:layout.n_i].clone()))
+            self.caps.sort(key=lambda c: -c[0])
+            del self.caps[self.want:]
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        self._launch(layout, fb, ib)
+        end.record()
+        self.events.append((start, end))
+
+    def __enter__(self):
+        self.pool._dispatch = self.dispatch
+        self.pool._writeback = self.writeback
+        self.m.sim_ops.sim_rounds = self.launch
+        return self
+
+    def __exit__(self, *exc):
+        self.m.sim_ops.sim_rounds = self._launch
+        del self.pool._dispatch, self.pool._writeback
+
+    def summary(self, wall):
+        self.torch.cuda.synchronize()
+        dev = [s.elapsed_time(e) for s, e in self.events]
+        calls = max(len(self.host), 1)
+        host_ms, back_ms = sum(self.host) * 1e3, sum(self.back) * 1e3
+        return dict(calls=len(self.host), kernel_device_ms_total=sum(dev),
+                    dispatch_ms_total=host_ms, writeback_ms_total=back_ms,
+                    kernel_device_ms_per_call=sum(dev) / calls,
+                    dispatch_ms_per_call=host_ms / calls,
+                    writeback_ms_per_call=back_ms / calls,
+                    staging_ms_per_call=(host_ms - back_ms - sum(dev))
+                    / calls,
+                    device_busy_share=sum(dev) / (wall * 1e3))
+
+
+def sim_clock_line(run):
+    kern = run["kernel_device_ms_per_call"]
+    return (f"; per call: dispatch {run['dispatch_ms_per_call']:.3f} ms = "
+            f"kernel device {kern:.3f} + writeback "
+            f"{run['writeback_ms_per_call']:.3f} + staging, copies, sync "
+            f"{run['staging_ms_per_call']:.3f}; device busy "
+            f"{run['device_busy_share']:.1%} (kernel time of wall)")
+
+
+def sim_check_call(torch, m, layout, fb, ib):
+    """(i) One staged call: the kernel against its plain version on the
+    card on the same inputs (every decision and clock bit-equal, the
+    rewards within SIM_REWARD_TOL of their scale) and a second launch on
+    the same inputs bit-equal.  Returns the largest reward error."""
+    ops = m.sim_ops
+    outs = []
+    for _ in range(2):
+        f, i = fb.clone(), ib.clone()
+        ops.sim_rounds(layout, f, i)
+        outs.append((f, i))
+    f, i = fb.clone(), ib.clone()
+    ops.sim_rounds_plain(layout, f, i)
+    torch.cuda.synchronize()
+    (k1f, k1i), (k2f, k2i) = outs
+    assert torch.equal(k1f[layout.f_back:].view(torch.int64),
+                       k2f[layout.f_back:].view(torch.int64)) and \
+        torch.equal(k1i[layout.i_back:], k2i[layout.i_back:]), \
+        "sim_rounds: a repeat differs"
+    got, want = layout.carry_out(k1f, k1i), layout.carry_out(f, i)
+    err = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if name in SIM_REWARD:
+            d = float((g - w).abs().max()) if g.numel() else 0.0
+            scale = float(w.abs().max()) if w.numel() else 0.0
+            assert d <= SIM_REWARD_TOL * max(scale, 1e-300), (name, d, scale)
+            err = max(err, d)
+        elif g.dtype == torch.float64:
+            assert torch.equal(g.view(torch.int64), w.view(torch.int64)), \
+                name
+        else:
+            assert torch.equal(g, w), name
+    assert int(want["round_no"]) > 0
+    return err
+
+
+def sim_time_call(torch, m, layout, fb, ib):
+    """The kernel on one staged call (CUDA events, median of TIMING_RUNS;
+    the staged inputs copied back in before each run, outside the events,
+    so each run does the call's whole work; the blocks stay in L2 as a
+    pool's call finds them, just copied in), its plain version on the
+    card (median of 3), and the bound: the staged bytes read once and
+    written once over the card's memory rate."""
+    f, i = fb.clone(), ib.clone()
+
+    class Restore:
+        @staticmethod
+        def zero_():
+            f.copy_(fb)
+            i.copy_(ib)
+
+    def kernel():
+        m.sim_ops.sim_rounds(layout, f, i)
+
+    def plain():
+        m.sim_ops.sim_rounds_plain(layout, f, i)
+    ms = time_ms(torch, kernel, Restore)
+    dev = time_ms(torch, kernel, Restore, spin=True)
+    plain_ms = time_ms(torch, plain, Restore, runs=3, warmup=1)
+    nbytes = m.sim_ops.staged_bytes(layout)
+    bound_ms, by = bound(0.0, nbytes)
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=None, library_device_ms=None,
+                share_of_bound=bound_ms / dev, staged_bytes=nbytes,
+                shape=dict(L=layout.L, S=layout.S, Q=layout.Q, C=layout.C,
+                           E=layout.E, W=layout.W))
+
+
+def sim_featurize_check(torch, np, m):
+    """(iii) ``featurize_jax_many`` on the card bit-equal to
+    ``featurize_vec_many`` at every decision point of the seeded episode
+    pair of the reference's test, for its four flag sets."""
+    prof = m.profiles.V100_LLAMA2_7B
+    n = 0
+    for flags in FEAT_FLAGS:
+        pool = m.jaxsim.JaxSimPool(2, min_span_ticks=0)
+        cfg = m.rl.RouterConfig(variant="guided", n_instances=3, seed=0)
+        envs = [m.rl.RoutingEnv(cfg, prof, pool=pool, pool_ep=i)
+                for i in range(2)]
+        for i, env in enumerate(envs):
+            env.reset(m.wl.to_requests(m.wl.generate(30, seed=40 + i),
+                                       rate=20.0, seed=41 + i))
+        for _ in range(FEAT_STEPS):
+            for env in envs:
+                a = (int(np.argmax(env.guidance_bonus()[:env.cluster.m]))
+                     if env.cluster.central else env.cluster.m)
+                env.step(a)
+            args = ([e.cluster for e in envs], [e.profile for e in envs],
+                    [e.predict_decode for e in envs])
+            kw = dict(n_buckets=cfg.n_buckets, alpha=cfg.alpha, **flags)
+            dev = np.stack(m.state.featurize_jax_many(*args, **kw))
+            vec = np.stack(m.state.featurize_vec_many(*args, **kw))
+            assert np.array_equal(dev, vec), flags
+            n += 1
+        assert pool.n_jax_calls > 0
+    return n
+
+
+def sim_phase(torch, np, m):
+    """Phase 5d: (ii) the bench's schedule at 32 episodes through py, vec,
+    jax (``min_span_ticks=0``) and the hybrid (8), parity request by
+    request, then 512 episodes through vec, jax and the hybrid; (i) the
+    kernel against its plain version on staged calls of the 32-episode
+    jax run, and timed; (iii) ``featurize_jax_many`` on the card.  The
+    launch counts are zeroed just before each jax and hybrid pool run
+    and read just after it (``sim_jax_32``, ``sim_hybrid_512``, ...):
+    each must equal that pool's ``n_jax_calls``, and (i)'s, the timing's
+    and (iii)'s launches fall outside every window."""
+    policy = m.legacy.make_policy("jsq", m.profiles.V100_LLAMA2_7B)
+    prof = m.profiles.V100_LLAMA2_7B
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    caps = []
+    for n_eps, backends in ((SIM_EPISODES, ("py", "vec", "jax", "hybrid")),
+                            (SIM_WIDE, ("vec", "jax", "hybrid"))):
+        runs, stamps = {}, {}
+        for name in backends:
+            streams = [sim_reqs(m, e) for e in range(n_eps)]
+            clock = None
+            torch.cuda.synchronize()
+            reset_launches(m)
+            t0 = time.perf_counter()
+            if name == "py":
+                for rs in streams:
+                    sim_drive_py(m, policy, rs)
+            else:
+                pool = (m.vecsim.VecSimPool(n_eps) if name == "vec" else
+                        m.jaxsim.JaxSimPool(n_eps, min_span_ticks=(
+                            0 if name == "jax" else 8)))
+                clock = (SimClock(torch, m, pool, SIM_CAPTURES
+                                  if n_eps == SIM_EPISODES else 0)
+                         if name == "jax" else contextlib.nullcontext())
+                with clock:
+                    m.vecsim.drive_pooled(pool, streams, policy, prof,
+                                          SIM_M, span_cap=SIM_SPAN_CAP,
+                                          max_t=SIM_MAX_T)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches(m)
+            stamps[name] = sim_stamps(streams)
+            assert all(r.finished is not None for rs in streams
+                       for r in rs), name
+            run = dict(wall_s=wall, episodes_per_s=n_eps / wall)
+            if name in ("jax", "hybrid"):
+                run.update(jax_calls=pool.n_jax_calls,
+                           numpy_calls=pool.n_numpy_calls)
+                assert pool.n_jax_calls > 0, (name, n_eps)
+                assert counts["sim_rounds"] == pool.n_jax_calls and not any(
+                    v for k, v in counts.items() if k != "sim_rounds"), \
+                    (name, n_eps, pool.n_jax_calls, counts)
+                launches[f"sim_{name}_{n_eps}"] = counts
+            else:
+                assert not any(counts.values()), (name, n_eps, counts)
+            if name == "jax":
+                run.update(clock.summary(wall))
+                caps = caps or clock.caps
+            runs[name] = run
+            log(f"  (5d-ii) {n_eps} episodes x {SIM_M} lanes, {name}: "
+                f"{wall:.3f} s, {run['episodes_per_s']:.2f} episodes/s"
+                + (f"; calls device {run['jax_calls']} (= launches "
+                   f"{counts['sim_rounds']}), host {run['numpy_calls']}"
+                   if "jax_calls" in run else "")
+                + (sim_clock_line(run) if name == "jax" else ""))
+        ref = stamps.get("py", stamps["vec"])
+        for name, st in stamps.items():
+            assert st == ref, f"5d: {name} diverged at {n_eps} episodes"
+        out[f"episodes_{n_eps}"] = runs
+        log(f"  (5d-ii) {n_eps} episodes: {', '.join(backends)} equal "
+            f"request by request")
+    assert len(caps) == SIM_CAPTURES, len(caps)
+    errs = [sim_check_call(torch, m, layout, fb, ib)
+            for _, layout, fb, ib in caps]
+    log(f"  (5d-i) kernel against plain on {len(caps)} staged calls "
+        f"({', '.join(str(c[0]) for c in caps)} active lanes): decisions, "
+        f"clocks and times bit-equal, rewards within {max(errs):.3e}, "
+        f"repeats bit-equal")
+    _, layout, fb, ib = caps[0]
+    timing = sim_time_call(torch, m, layout, fb, ib)
+    log(f"  (5d-i) one call ({caps[0][0]} active lanes, "
+        f"{timing['staged_bytes']} staged bytes): kernel "
+        f"{timing['ms']:.4f} ms, device {timing['device_ms']:.4f} ms, "
+        f"plain on the card {timing['plain_ms']:.2f} ms, bound "
+        f"{timing['bound_ms']:.5f} ms (bytes), "
+        f"{timing['share_of_bound']:.2%} of it")
+    n_feat = sim_featurize_check(torch, np, m)
+    log(f"  (5d-iii) featurize_jax_many bit-equal to featurize_vec_many "
+        f"at {n_feat} decision points (4 flag sets)")
+    out.update(max_abs_err=max(errs), timing=timing, featurize_points=n_feat,
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    log(f"  device-resident simulator phase {out['phase_s']:.1f} s")
+    return out
 
 
 # -- phases 6 and 7: the gateway over full-width engines ---------------------
@@ -2002,17 +2379,88 @@ FIDELITY_BAND = 0.35
 # shape (2 engines x 8 slots x 2048, the V100 profile's 4000 tokens).  The
 # stream is cut from 24 requests to 12: at 24 the two legs took 975 and
 # 892 decode steps, 141 s of the phase's 207 s on an H100
-FID_LLAMA = dict(backends=("py", "vec", "engine"), n_requests=12,
+FID_LLAMA = dict(backends=("py", "vec", "jax", "engine"), n_requests=12,
                  n_instances=2, n_slots=8, cache_len=2048,
                  capacity_tokens=4000, prompt_lengths=(128, 256, 512, 1024),
                  decode_range=(16, 128), rate=1.0, policy="mixing")
 # 8d: the saturating stream on one qwen3-0.6b engine x 2 slots: two
 # bursts of 4 ladder-top (512-token) prompts whose decodes (40-48) push
 # two residents past 1100 tokens, so every backend preempts
-FID_SATURATE = dict(backends=("py", "vec", "engine"), n_requests=8,
+FID_SATURATE = dict(backends=("py", "vec", "jax", "engine"), n_requests=8,
                     n_instances=1, n_slots=2, cache_len=1024,
                     capacity_tokens=1100, prompt_lengths=(256, 512),
                     decode_range=(16, 48), rate=2.0, saturate=True)
+
+
+# the simulator backends' agreement (tests/test_vecsim.py:31-47,
+# tests/test_torch_vecsim.py:100-104): TBT sums per-token spans that vec
+# synthesizes evenly between the true first and last emission, so its
+# percentiles and mean agree with py's to 1e-12 relative; every other
+# report field is exact
+TBT_REL = 1e-12
+
+
+def assert_reports_agree(a, b, what):
+    """Two simulator backends' fidelity reports: every field equal, the
+    TBT percentiles and mean within TBT_REL."""
+    a, b = dict(a), dict(b)
+    ta, tb = a.pop("tbt"), b.pop("tbt")
+    assert a == b, (what, a, b)
+    assert ta.keys() == tb.keys() and ta["n"] == tb["n"], (what, ta, tb)
+    for key, va in ta.items():
+        vb = tb[key]
+        if va is None or vb is None:
+            assert va == vb, (what, key, va, vb)
+        else:
+            assert abs(va - vb) <= TBT_REL * abs(va), (what, key, va, vb)
+
+
+# 8e: the decode step's host time by batch at a fixed 1024 resident
+# tokens, on the reduced qwen3-0.6b of tests/test_torch_cuda.py's
+# calibration test (2 layers, d 64, head_dim 32, f32), host clock around
+# each step with the card synchronised
+PROBE_DECODE = ((1, 1024), (2, 512), (4, 256), (8, 128))
+PROBE_CALLS = 20
+
+
+def decode_host_probe(torch, m):
+    """8e: the reduced model's gang decode step at PROBE_DECODE's batch
+    sizes: host ms a step (min and median of PROBE_CALLS), and from
+    torch.profiler its device busy ms and kernels a step.  A cost the
+    port's decode paid per slot on the host would grow with the batch."""
+    cfg = m.get_config("qwen3-0.6b").reduced(head_dim=32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = m.params_lib.init_params(cfg, gen, device="cuda")
+    out = {}
+    for b, ctx in PROBE_DECODE:
+        cache = m.model_lib.init_cache(cfg, b, ctx, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                             device="cuda")
+
+        def step():
+            cache["pos"].fill_(ctx - 1)
+            m.model_lib.decode_step(params, cfg, cache, tokens=toks)
+        ts = []
+        with torch.no_grad():
+            for _ in range(3):
+                step()
+            for _ in range(PROBE_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(ts)
+        prof = profile_pass(torch, step, med,
+                            f"reduced qwen3-0.6b decode, B={b} x {ctx}")
+        out[b] = dict(ctx=ctx, host_min_ms=min(ts), host_median_ms=med,
+                      device_busy_ms=prof["device_busy_ms"],
+                      kernels=prof["kernels_per_pass"])
+        log(f"  (8e) decode step B={b} x {ctx} tokens: host min "
+            f"{min(ts):.3f} ms, median {med:.3f} ms; device busy "
+            f"{prof['device_busy_ms']:.3f} ms, "
+            f"{prof['kernels_per_pass']:.0f} kernels")
+    return out
 
 
 def layer_counts(cfg):
@@ -2038,7 +2486,8 @@ def expect_layers(cfg, launches, prefills, steps):
             "decode_attention_int8": 0, "mamba_scan": mamba * prefills,
             "flash_attention_bwd": 0, "mamba_scan_bwd": 0}
     want[dec] = attn * steps
-    assert launches == want, (launches, want)
+    got = {k: launches[k] for k in want}
+    assert got == want, (launches, want)
 
 
 def calibrate_on_card(torch, m, cfg, params, grid, name, measured):
@@ -2105,18 +2554,27 @@ def calibrate_on_card(torch, m, cfg, params, grid, name, measured):
 def fidelity_on_card(torch, m, cfg, params, fcfg, profile, what):
     """``serving.fidelity.run_fidelity`` with the engine leg on the
     card, the launch counts read around it and held to the engines' own
-    prefill and decode-step counts; vec must equal py and the engine
-    must serve the whole stream."""
-    made = []
+    prefill and decode-step counts; vec must agree with py and jax with
+    vec (``assert_reports_agree``), every backend must serve the whole
+    stream, and the jax leg's one pool must run only host rounds (the
+    gateway's one-tick spans are under its minimum span)."""
+    made, pools = [], []
+    base_pool = m.jaxsim.JaxSimPool
 
     class CountedInstance(m.LLMInstance):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             made.append(self)
 
+    class CountedPool(base_pool):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pools.append(self)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     m.fid.LLMInstance = CountedInstance
+    m.jaxsim.JaxSimPool = CountedPool
     try:
         reset_launches(m)
         t0 = time.perf_counter()
@@ -2127,11 +2585,19 @@ def fidelity_on_card(torch, m, cfg, params, fcfg, profile, what):
         launches = read_launches(m)
     finally:
         m.fid.LLMInstance = m.LLMInstance
+        m.jaxsim.JaxSimPool = base_pool
+    # the gateway advances one tick a call, under the pool's 8-tick
+    # minimum span: the jax leg runs the inherited numpy rounds
+    jax_calls = sum(p.n_jax_calls for p in pools)
+    numpy_calls = sum(p.n_numpy_calls for p in pools)
+    assert len(pools) == 1 and jax_calls == 0 and numpy_calls > 0, \
+        (len(pools), jax_calls, numpy_calls)
     prefills = sum(e.n_prefills for e in made)
     steps = sum(e.n_decode_steps for e in made)
     expect_layers(cfg, launches, prefills, steps)
     backends = rep["backends"]
-    assert backends["vec"] == backends["py"], "vec diverged from py"
+    assert_reports_agree(backends["vec"], backends["py"], "vec vs py")
+    assert_reports_agree(backends["jax"], backends["vec"], "jax vs vec")
     for name, b in backends.items():
         assert b["completed"] == fcfg.n_requests, (name, b["completed"])
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2140,14 +2606,16 @@ def fidelity_on_card(torch, m, cfg, params, fcfg, profile, what):
         log("    " + line)
     log(f"  [{what}] engine leg: {prefills} prefills, {steps} decode "
         f"steps; {wall:.1f} s wall for all backends, peak {peak:.2f} GB "
-        f"allocated; launches {launches}")
+        f"allocated; launches {launches}; jax leg: device calls "
+        f"{jax_calls}, numpy rounds calls {numpy_calls}")
     del made             # the engines and their caches, before the release
     torch.cuda.empty_cache()
     return launches, rep, dict(
         wall_s=wall, peak_gb=peak, prefills=prefills, decode_steps=steps,
         e2e_p95_rel=d["e2e"]["p95"]["rel"],
         ttft_p95_rel=d["ttft"]["p95"]["rel"],
-        preemptions=d["preemptions"], report=rep)
+        preemptions=d["preemptions"], jax_leg_numpy_calls=numpy_calls,
+        report=rep)
 
 
 def loop_phase(torch, m, qwen, llama, served, gateway):
@@ -2192,6 +2660,8 @@ def loop_phase(torch, m, qwen, llama, served, gateway):
         m.profiles.V100_LLAMA2_7B, "fidelity_qwen3_saturate")
     assert sat["preemptions"]["both_preempt"], sat["preemptions"]
     out["fidelity_qwen3_saturate"] = sat
+    log("  (8e) the reduced model's decode step by batch (host-bound)")
+    out["decode_host_probe"] = decode_host_probe(torch, m)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  loop phase {out['phase_s']:.1f} s")
     return launches, out
@@ -2289,54 +2759,127 @@ def moe_check(torch, m, cfg, p_moe, name):
     return out
 
 
+def clone_tree(x):
+    """A copy of a nest of dicts, lists and tensors (a decode cache)."""
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(clone_tree(v) for v in x)
+    return x.clone() if hasattr(x, "clone") else x
+
+
+class RouteProbe:
+    """Wraps ``models.moe._router`` for one forward pass: records each
+    call's top-k experts of the last row (one call a routed layer, in
+    layer order); with ``forced`` (such a record), the last row takes the
+    recorded experts instead, weighted by the call's own probabilities
+    there, renormalised as the router does."""
+
+    def __init__(self, torch, moe, forced=None):
+        self.torch, self.moe, self.forced = torch, moe, forced
+        self.inner = moe._router
+        self.calls = []
+
+    def __call__(self, p, x, cfg):
+        probs, idx, w = self.inner(p, x, cfg)
+        if self.forced is not None:
+            idx = idx.clone()
+            idx[-1] = self.forced[len(self.calls)]
+            w = probs.gather(1, idx)
+            w = w / self.torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        self.calls.append(idx[-1].clone())
+        return probs, idx, w
+
+    def __enter__(self):
+        self.moe._router = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.inner
+
+
 def decode_check(torch, m, cfg, params, name, routed):
     """9c (ii): a prefill of DECODE_CHECK_S positions, then
     DECODE_CHECK_STEPS decode steps; step t's logits against the last
     logits of a fresh prefill of the same S+t+1 positions (seeded inputs;
-    vision inputs where the model has cross layers).  Without routed
-    experts the error is asserted within DECODE_CHECK_TOL of max |logit|;
-    with them it is printed with the top-1 agreement (in bf16, a prefill
-    and a decode step may route a near-tied token to different
-    experts).  The launch counts are read around the whole check."""
+    vision inputs where the model has cross layers), the error asserted
+    within DECODE_CHECK_TOL of max |logit|.  With routed experts, the
+    step's top-k expert set is compared layer by layer with the prefill's
+    row for the same token (the differing ones counted a layer), and the
+    bound is asserted on the same step run again from the same cache
+    with the prefill's experts forced: in bf16 a decode step and a
+    prefill may route a near-tied token to different experts, which
+    moves the logits by whatever those experts differ; the unforced
+    error is printed.  The launch counts are read around the whole
+    check."""
     s, n = DECODE_CHECK_S, DECODE_CHECK_STEPS
     gen = torch.Generator(device="cuda").manual_seed(5)
     seq, vis = model_inputs(torch, cfg, m.params_lib.torch_dtype(cfg.dtype),
                             1, s + n, gen, "cuda")
     cache_len = s + 8
-    errs, rel, agree = [], [], 0
+    errs, rel, agree, forced_rel, flips = [], [], 0, [], None
     torch.cuda.synchronize()
     reset_launches(m)
     t0 = time.perf_counter()
+
+    def rel_err(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / float(want.float().abs().max())
+
     with torch.no_grad():
         logits, cache = m.model_lib.prefill(
             params, cfg, cache_len=cache_len, **seq_slice(seq, 0, s), **vis)
         finite = [torch.isfinite(logits).all()]
         for t in range(n):
-            logits, cache = m.model_lib.decode_step(
-                params, cfg, cache, **seq_slice(seq, s + t, s + t + 1))
-            want, _ = m.model_lib.prefill(
-                params, cfg, cache_len=cache_len,
-                **seq_slice(seq, 0, s + t + 1), **vis)
+            tok = seq_slice(seq, s + t, s + t + 1)
+            before = clone_tree(cache) if routed else None
+            with RouteProbe(torch, m.moe) as dec:
+                logits, cache = m.model_lib.decode_step(params, cfg, cache,
+                                                        **tok)
+            with RouteProbe(torch, m.moe) as pre:
+                want, _ = m.model_lib.prefill(
+                    params, cfg, cache_len=cache_len,
+                    **seq_slice(seq, 0, s + t + 1), **vis)
             finite += [torch.isfinite(logits).all(),
                        torch.isfinite(want).all()]
-            err = float((logits.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
+            err, r = rel_err(logits, want)
             errs.append(err)
-            rel.append(err / scale)
+            rel.append(r)
             agree += int(torch.argmax(logits) == torch.argmax(want))
+            if routed:
+                assert len(dec.calls) == len(pre.calls) > 0, name
+                diff = [int(set(a.tolist()) != set(b.tolist()))
+                        for a, b in zip(dec.calls, pre.calls)]
+                flips = diff if flips is None else [
+                    x + y for x, y in zip(flips, diff)]
+                with RouteProbe(torch, m.moe, forced=pre.calls):
+                    forced, _ = m.model_lib.decode_step(params, cfg,
+                                                        before, **tok)
+                forced_rel.append(rel_err(forced, want)[1])
+                del before
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(m)
     assert bool(torch.stack(finite).all()), f"{name}: non-finite logits"
     assert logits.shape == (1, cfg.vocab_size), logits.shape
-    expect_layers(cfg, launches, n + 1, n)
+    expect_layers(cfg, launches, n + 1, 2 * n if routed else n)
     log(f"  (9c-ii) {name}: decode vs prefill at S={s}+1..{s + n}: "
         f"max err {max(errs):.4f} = {max(rel):.4f} x max |logit|, top-1 "
         f"agrees {agree}/{n} ({wall:.2f} s); launches {launches}")
-    if not routed:
+    out = dict(errs=errs, rel=rel, top1_agree=agree, steps=n, wall_s=wall,
+               launches=launches)
+    if routed:
+        log(f"  (9c-ii) {name}: tokens whose top-{cfg.moe.top_k} experts "
+            f"differ from the prefill's, a routed layer over the {n} "
+            f"steps: {flips} ({sum(flips)} of {n * len(flips)}); with the "
+            f"prefill's experts forced, max err "
+            f"{max(forced_rel):.4f} x max |logit|")
+        out.update(expert_set_differs_by_layer=flips,
+                   forced_routing_rel=forced_rel)
+        assert max(forced_rel) <= DECODE_CHECK_TOL, (name, forced_rel)
+    else:
         assert max(rel) <= DECODE_CHECK_TOL, (name, rel)
-    return launches, dict(errs=errs, rel=rel, top1_agree=agree, steps=n,
-                          wall_s=wall, launches=launches)
+    return launches, out
 
 
 def mla_bytes_per_token(cfg):
@@ -2805,6 +3348,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import batched_rl, dqn, profiles, rl_router as rl
     from repro_torch.core import calibrate as cal
+    from repro_torch.core import jaxsim, state, vecsim
     from repro_torch.core import policies as legacy
     from repro_torch.core import simulator as sim
     from repro_torch.core import predictor as pred_lib
@@ -2813,6 +3357,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.sim_rounds import ops as sim_ops
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model as model_lib
     from repro_torch.models import moe as moe_mod
@@ -2857,7 +3402,8 @@ def main(argv=None) -> int:
         save_learner=save_learner, restore_learner=restore_learner,
         Gateway=Gateway, GatewayConfig=GatewayConfig,
         OracleLength=OracleLength, sim=sim, legacy=legacy, cal=cal,
-        fid=fid, moe=moe_mod, model_lib=model_lib)
+        fid=fid, moe=moe_mod, model_lib=model_lib, jaxsim=jaxsim,
+        vecsim=vecsim, state=state, sim_ops=sim_ops)
     # nvcc builds the kernels in the background while phase 5b, which
     # launches none of them, runs
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -2906,9 +3452,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     log("[5c/10] the router's scale-up on the card: batched training over "
-        "py and vec, the heterogeneous stream, online learning under "
+        "py, vec and jax, the heterogeneous stream, online learning under "
         "drift")
     scale_launches, scale_up = scale_up_phase(torch, np, mods)
+
+    log("[5d/10] the device-resident simulator: bench_jaxsim's schedule "
+        "through py, vec, jax and the hybrid at 32 and 512 episodes, the "
+        "round-loop kernel against its plain version, featurize_jax_many")
+    sim = sim_phase(torch, np, mods)
+    times["sim_rounds"] = sim["timing"]
+    errs["sim_rounds"] = sim["max_abs_err"]
+    torch.cuda.empty_cache()
 
     log("[6/10] the gateway over full-width llama-2-7b (int8 KV cache) "
         "through serve_gateway, policies rl (restored) and mixing")
@@ -2940,7 +3494,7 @@ def main(argv=None) -> int:
     train_launches, training = train_phase(torch, np, mods)
     # each path's own counts (reset before it, read after it): phase 5's
     # serve_engine, phase 5b's router path, phase 5c's three parts, phase
-    # 6's gateway under each policy, phase 7's, phase 8's two sweeps and
+    # 5d's four jax and hybrid pool runs, phase 6's gateway under each policy, phase 7's, phase 8's two sweeps and
     # three fidelity runs, phase 9's gateway runs, MoE check and five
     # decode checks, phase 10's three training parts
     by_path = {"serve_engine": launches,
@@ -2948,6 +3502,7 @@ def main(argv=None) -> int:
                "batched": scale_launches["batched"],
                "hetero": scale_launches["hetero"],
                "online": scale_launches["online"],
+               **sim["launches"],
                "gateway_rl": gw_launches["rl"],
                "gateway_mixing": gw_launches["mixing"],
                "gateway_mamba_rl": mamba_launches["rl"],
@@ -2991,7 +3546,7 @@ def main(argv=None) -> int:
                                "timing_shapes": {n: t["shape"]
                                                  for n, t in times.items()},
                                "serve": served, "router": router,
-                               "scale_up": scale_up,
+                               "scale_up": scale_up, "sim": sim,
                                "gateway": gateway,
                                "gateway_mamba": mamba_gateway,
                                "loop": loop, "families": families,

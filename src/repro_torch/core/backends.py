@@ -13,11 +13,12 @@ Registered backends:
 
   * ``py``     -- the per-instance Python reference stepper (the oracle).
   * ``vec``    -- numpy structure-of-arrays pool, bit-exact vs ``py``.
-  * ``jax``    -- the reference's device-resident round loop.  The port
-                  keeps the name so that the registry lists the same
-                  four backends; its accelerator-resident pool (ROADMAP
-                  §2 item 5) is not ported yet, and both factories raise
-                  ``NotImplementedError``.
+  * ``jax``    -- the device-resident pool (``core.jaxsim``): the vec
+                  layout with its round loop as one CUDA kernel launch
+                  a call; decision/clock bit-parity with ``vec``.  Its
+                  factories take ``device`` (the card unless the caller
+                  asks for the CPU, where the kernel's plain version
+                  runs).
   * ``engine`` -- real reduced-model engines behind
                   ``EngineClusterAdapter`` (needs constructed engines;
                   no pooled training form).
@@ -85,7 +86,7 @@ class PyBackend:
 
     name = "py"
 
-    def make_cluster(self, profile, n_instances, **kw):
+    def make_cluster(self, profile, n_instances, device=None, **kw):
         from repro_torch.core.simulator import Cluster
         kw.pop("backend", None)
         return Cluster(profile, n_instances, backend="py", **kw)
@@ -102,15 +103,20 @@ class VecBackend:
     """Numpy structure-of-arrays pool (bit-exact vs 'py')."""
 
     name = "vec"
+    # whether the pool lives on a device (takes ``device=``); the vec
+    # pool is host numpy and ignores it
+    placed = False
 
     def _pool_cls(self):
         from repro_torch.core.vecsim import VecSimPool
         return VecSimPool
 
-    def make_cluster(self, profile, n_instances, **kw):
+    def make_cluster(self, profile, n_instances, device="cuda", **kw):
         from repro_torch.core.vecsim import VecCluster
         kw.pop("backend", None)
-        kw.setdefault("pool", self._pool_cls()(1))
+        if kw.get("pool") is None:
+            pool_kw = {"device": device} if self.placed else {}
+            kw["pool"] = self._pool_cls()(1, **pool_kw)
         return VecCluster(profile, n_instances, **kw)
 
     def make_pool(self, n_episodes, **kw):
@@ -119,15 +125,15 @@ class VecBackend:
 
 @register_backend("jax")
 class JaxBackend(VecBackend):
-    """The reference's device-resident round loop: not ported yet."""
+    """The vec layout with its round loop on the device (one kernel
+    launch a ``_run_rounds`` call), on ``device``."""
 
     name = "jax"
+    placed = True
 
     def _pool_cls(self):
-        raise NotImplementedError(
-            "simulator backend 'jax': the device-resident pool comes "
-            "with a later slice of the port (ROADMAP §2 item 5, a "
-            "CUDA-resident torch pool); use backend='py' or 'vec'")
+        from repro_torch.core.jaxsim import JaxSimPool
+        return JaxSimPool
 
 
 @register_backend("engine")

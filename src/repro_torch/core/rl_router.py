@@ -281,8 +281,8 @@ class RoutingEnv:
 
     ``backend`` names any ``core.backends`` registry backend:
     ``"vec"`` steps the episode on the vectorized structure-of-arrays
-    simulator (`core.vecsim`), ``"jax"`` on the device-resident jitted
-    round loop (`core.jaxsim`).  Passing a shared ``pool`` +
+    simulator (`core.vecsim`), ``"jax"`` on the device-resident pool,
+    whose round loop is one kernel launch a call (`core.jaxsim`).  Passing a shared ``pool`` +
     ``pool_ep`` instead packs this episode into a multi-episode pool
     so the batched trainer advances all its episodes in fused rounds.
     ``sim_backend=`` is the deprecated pre-registry alias of

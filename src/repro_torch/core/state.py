@@ -29,16 +29,16 @@ score and the instance's slowdown ``1 - 1/speed_factor`` (both in
 [0, 1]) so an agent can learn to route around stragglers before the
 circuit breaker trips (off by default, same shape-compat reasoning).
 
-This is the port's own copy of the numpy featurizers: the scalar path
-and the batched one over the vectorized simulator
-(``featurize_vec_many``); the device-resident twin comes with that
-simulator's slice of the port.
+This is the port's own copy of the featurizers: the scalar path, the
+batched one over the vectorized simulator (``featurize_vec_many``), and
+its twin on the device-resident pool's device (``featurize_jax_many``).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import impact
 from repro_torch.core.profiles import HardwareProfile
@@ -299,7 +299,7 @@ def featurize_vec_many(clusters, profiles, predict_decodes,
 
 def _impact_heads(clusters, heads, predict_decodes, n):
     """Per-lane head-of-queue prompt/decode arrays (host: reads Request
-    objects)."""
+    objects) shared by the numpy and device featurize paths."""
     p_head = np.zeros(n)
     d_head = np.zeros(n)
     has_head = np.zeros(n, bool)
@@ -379,6 +379,104 @@ def _assemble(block, clusters, heads, profiles, predict_buckets, dims,
                 0.0 if wait < 0.0 else wait)
         out.append(feats.astype(np.float32))
     return out
+
+
+def _device_block(st, p, d, pf, dtot, qps, cap, nslots, tdec, grad1,
+                  grad2, eps_lat, p_head, d_head, has_head, alpha: float,
+                  include_impact: bool, include_hardware: bool):
+    """The per-lane instance block of ``featurize_vec_many`` in float64
+    torch ops: the same expressions in the same association order, each
+    product and sum its own op (so nothing contracts into an FMA)."""
+    occ = st != 0
+    ctx = ((pf + d) * occ).sum(1)
+    left = (dtot - d) + (~occ).long() * (1 << 62)
+    min_left = left.min(1).values
+    has_res = occ.any(1)
+    lo_p, hi_p = (p < _E0) & occ, (p >= _E1) & occ
+    lo_d, hi_d = (d < _E0) & occ, (d >= _E1) & occ
+    scale = nslots.double()
+    cols = [m.sum(1).double() / scale
+            for m in (lo_p, occ & ~lo_p & ~hi_p, hi_p,
+                      lo_d, occ & ~lo_d & ~hi_d, hi_d)]
+    free = (cap - ctx - qps) / cap
+    cols.append(torch.clamp(free, min=-1.0, max=1.0))
+    t_c = torch.clamp(min_left, min=0).double() * tdec / 10.0
+    cols.append(torch.where(t_c > 1.0, 1.0, t_c) * has_res)
+    if include_impact:
+        # impact.mixing_vec, written out
+        s = ctx + qps
+        t_p = grad1 * (p_head * p_head + s)
+        r_p = torch.where(t_p <= eps_lat, 1.0, 1.0 - t_p / eps_lat)
+        r_d = -grad2 * (s + p_head + d_head)
+        score = alpha * r_p + (1 - alpha) * r_d
+        cols.append(torch.clamp(score, min=-5.0, max=1.0) * has_head)
+    if include_hardware:
+        cols.append(torch.clamp(grad1 * HW_G1_SCALE, max=1.0))
+        cols.append(torch.clamp(grad2 * HW_G2_SCALE, max=1.0))
+        cols.append(torch.clamp(cap * HW_CAP_SCALE, max=1.0))
+    return torch.stack(cols, 1)
+
+
+def featurize_jax_many(clusters, profiles, predict_decodes,
+                       n_buckets: int = 8, include_impact: bool = True,
+                       alpha: float = 0.5, predict_buckets=None,
+                       include_hardware: bool = False,
+                       include_cache: bool = False,
+                       include_health: bool = False):
+    """Device twin of ``featurize_vec_many`` over a device-resident pool
+    (``core.jaxsim.JaxSimPool``): the per-lane instance block
+    (histograms, capacity fraction, earliest completion, impact, hardware
+    constants) is computed in float64 torch ops on the pool's device with
+    the numpy path's association order, so the float32 vectors are
+    bit-equal to ``featurize_vec_many``.  The cache and health columns
+    read host Python objects (PrefixCache dicts, gateway health trackers)
+    and are filled on the host exactly as the numpy path fills them."""
+    pool = clusters[0].pool
+    dev = pool.device
+    lanes_cat = np.concatenate([c.lane_ids for c in clusters])
+    n = lanes_cat.size
+    hw = pool._hw
+    heads = [c.central[0] if c.central else None for c in clusters]
+    dims = instance_dims(include_impact, include_hardware,
+                         include_cache, include_health)
+    block = np.zeros((n, dims))
+    if include_impact:
+        p_head, d_head, has_head = _impact_heads(clusters, heads,
+                                                 predict_decodes, n)
+    else:
+        p_head = d_head = np.zeros(n)
+        has_head = np.zeros(n, bool)
+    # hw == 0 (fresh pool, nothing ever resident): one all-empty dummy
+    # slot column keeps shapes non-degenerate and gives the numpy path's
+    # values (occ is all-False: histograms 0, T_c masked by has_res)
+    w = max(hw, 1)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    core = _device_block(
+        on_dev(pool.s_state[:, :w][lanes_cat]),
+        *(on_dev(a[:, :w][lanes_cat]) for a in (
+            pool.s_prompt, pool.s_decoded, pool.s_prefilled,
+            pool.s_dtotal)),
+        *(on_dev(a[lanes_cat]) for a in (
+            pool.qps, pool.cap, pool.nslots, pool.tdec, pool.grad1,
+            pool.grad2, pool.eps_lat)),
+        on_dev(p_head), on_dev(d_head), on_dev(has_head), alpha,
+        include_impact, include_hardware)
+    ncore = (INSTANCE_DIMS + (1 if include_impact else 0)
+             + (HW_DIMS if include_hardware else 0))
+    block[:, :ncore] = core.cpu().numpy()
+    if include_cache:
+        _fill_cache_col(block, clusters, heads, pool, include_impact,
+                        include_hardware)
+    if include_health:
+        _fill_health_cols(block, clusters, pool, lanes_cat,
+                          include_impact, include_hardware,
+                          include_cache)
+    block *= ~pool.failed[lanes_cat][:, None]
+    return _assemble(block, clusters, heads, profiles,
+                     predict_buckets, dims, n_buckets)
 
 
 def pad_state(s: np.ndarray, m: int, m_max: int,

@@ -31,9 +31,10 @@ the Python stepper (asserted by tests/test_vecsim.py and
 tests/test_torch_vecsim.py).  The only
 divergences are documented: the ordering of completions *within* one
 ``advance`` call, per-token ``token_times`` (synthesized evenly spaced
-between the true first/last emission, so ``Request.tbt`` -- which
-telescopes -- is exact), and the float summation order of the RL
-backlog accumulators (reward-only, never decisions).
+between the true first/last emission, so ``Request.tbt``, which sums
+their spans as floats, agrees with the Python stepper's to about an ulp:
+1e-12 relative in the tests, not bit for bit), and the float summation
+order of the RL backlog accumulators (reward-only, never decisions).
 
 Entry points:
   * ``Cluster(..., backend="vec")`` returns a :class:`VecCluster`
@@ -601,9 +602,9 @@ class VecSimPool:
         This is the backend override point: everything above it
         (enqueue/route/collect, span bookkeeping) is pure SoA state
         manipulation shared by every pooled backend, and everything
-        below is the per-round simulation semantics.  A device-resident
-        pool overrides ONLY this method to run the same rounds on the
-        accelerator."""
+        below is the per-round simulation semantics.  ``JaxSimPool``
+        (core.jaxsim) overrides ONLY this method to run the same rounds
+        as one kernel launch on the card."""
         behind = self.clock < target
         if behind.any():
             runnable = ((self.res_cnt > 0) | (self.qcnt > 0)) \
@@ -1281,9 +1282,12 @@ class VecSimPool:
         r.finished = float(self.finished[gid])
         ne = int(self.nemit[gid])
         # evenly-spaced synthesis between the true first and last
-        # emission (the last token's time IS the finish time):
-        # Request.tbt telescopes to (last-first)/(n-1), which is exact;
-        # only per-token jitter (bench_table3's gap variance) is lost.
+        # emission: Request.tbt sums these spans as floats, so it is
+        # (last-first)/(n-1) to within an ulp or so of py's uneven
+        # spans, not bit for bit (the synthesized last time,
+        # first + step * (n-1), need not round to the finish time
+        # either); per-token jitter (bench_table3's gap variance) is
+        # lost.
         if ne >= 2:
             step = (r.finished - first) / (ne - 1)
             r.token_times = (first + step * np.arange(ne)).tolist()
@@ -1602,3 +1606,63 @@ class VecCluster:
         Python object (episode-end reporting)."""
         for gid in self._gid.values():
             self.pool.sync_request(gid)
+
+
+# -- the pooled drive of benchmarks/bench_jaxsim.py -----------------------------
+
+def span_ticks(cluster, pending: Sequence[Request], i: int,
+               span_cap: int) -> int:
+    """The drive's span length: 1 tick while the central queue holds a
+    decision, ``span_cap`` once every arrival is in (the drain window),
+    else up to the next arrival (``pending[i]``)."""
+    if cluster.central:
+        return 1
+    if i >= len(pending):
+        return span_cap
+    return max(1, min(span_cap, int(np.ceil(
+        (pending[i].arrival - cluster.t) / cluster.dt))))
+
+
+def drive_pooled(pool: VecSimPool, all_reqs: Sequence[Sequence[Request]],
+                 policy, profile, n_instances: int, span_cap: int = 256,
+                 max_t: float = 36_000.0) -> List[VecCluster]:
+    """One episode a pool slot (``all_reqs[e]`` over ``n_instances``
+    instances of ``profile``), every live episode's span advanced in
+    one shared ``pool.advance_span`` call: route while the central
+    queue has work (``policy.act``, at most 64 a tick), then advance
+    ``span_ticks``; an episode ends when every request completed or
+    its clock reached ``max_t``.  Returns the clusters, synced."""
+    clusters = [VecCluster(profile, n_instances, pool=pool, ep=e)
+                for e in range(len(all_reqs))]
+    pend = [sorted(rs, key=lambda r: r.arrival) for rs in all_reqs]
+    idx = [0] * len(clusters)
+    live = set(range(len(clusters)))
+    while live:
+        spans = []
+        for e in sorted(live):
+            c, rs = clusters[e], pend[e]
+            while idx[e] < len(rs) and rs[idx[e]].arrival <= c.t:
+                c.enqueue(rs[idx[e]])
+                idx[e] += 1
+            for _ in range(64):
+                if not c.central:
+                    break
+                act = policy.act(c)
+                if act is None or act >= c.m:
+                    break
+                c.route(act)
+            if len(c.completed) >= len(rs) or c.t >= max_t:
+                live.discard(e)
+                continue
+            t, bounds = c.t, []
+            for _ in range(span_ticks(c, rs, idx[e], span_cap)):
+                t += c.dt
+                bounds.append(t)
+            spans.append((e, bounds))
+        if spans:
+            out = pool.advance_span(spans)
+            for e, bounds in spans:
+                clusters[e].collect_span(out[e][0], len(bounds))
+    for c in clusters:
+        c.sync_all()
+    return clusters

@@ -59,6 +59,9 @@ SIGNATURES = {
     "repro_mamba_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P),
+    # f64 block, i64 block, host offsets table, L, S, Q, E, W, threads,
+    # stream
+    "repro_sim_rounds": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

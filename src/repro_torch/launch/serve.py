@@ -47,8 +47,12 @@ calibrated simulator or real LLM engines (twin of
   PYTHONPATH=src python -m repro_torch.launch.serve --mode gateway \
       --profile-json profile.json
 
-The device-resident simulator (``--backend jax``) comes with a later
-slice of the port; asking for it exits with a message saying so.
+``--backend jax`` serves over the device-resident simulator pool
+(``core.jaxsim``) on ``--device``.  The gateway advances one tick a
+call, under the pool's default 8-tick minimum span (``min_span_ticks``),
+so per-tick serving runs the pool's inherited numpy rounds, as ``--backend
+vec`` does; the round loop's kernel (its plain version on the CPU) runs
+only for spans of 8 ticks or more, as the pooled trainer's.
 """
 from __future__ import annotations
 
@@ -76,16 +80,14 @@ from repro_torch.serving import trace as trace_lib
 from repro_torch.serving.chaos import FaultSchedule, inject_bursts
 from repro_torch.serving.engine import LLMInstance
 from repro_torch.serving.gateway import (EngineClusterAdapter, Gateway,
-                                         GatewayConfig, MicroBatchPredictor)
+                                         GatewayConfig, MicroBatchPredictor,
+                                         simulator_cluster)
 from repro_torch.serving.metrics import format_snapshot
 from repro_torch.serving.policies import (RLPolicy, make_gateway_policy,
                                           restore_rl_policy)
 from repro_torch.serving.request import Request, summarize
 from repro_torch.serving.scheduler import get_scheduler
 from repro_torch.training.online import OnlineConfig, OnlineTrainer
-
-LATER = "comes with a later slice of the PyTorch port"
-
 
 def _base_profile(args):
     """The serving profile: a calibrated JSON artifact when given (under
@@ -307,10 +309,6 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
     ``"predictor"`` over the simulator, and the online learner's
     telemetry under ``"online"``)."""
     backend = _resolve_backend(args)
-    if backend == "jax":
-        sys.exit(f"--backend jax: the device-resident simulator {LATER} "
-                 "(ROADMAP §2 item 5); the port serves --backend py, vec "
-                 "and engine")
     if args.online and backend == "engine":
         raise SystemExit("--online needs a simulator backend "
                          "(py/vec): the engine adapter fires no "
@@ -319,7 +317,7 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
         given = _given(args, SIM_ONLY)
         if given:
             sys.exit(f"{', '.join(given)}: read only over the simulator "
-                     "(--backend py|vec), not over --backend engine")
+                     "(--backend py|vec|jax), not over --backend engine")
     dev = resolve_device(args.device)
     cfg = _router_cfg(args)
     chaos = _chaos_schedule(args)
@@ -405,6 +403,8 @@ def serve_gateway(args, engines: Optional[List[LLMInstance]] = None,
         else:
             policy = make_gateway_policy(args.policy, cfg)
         gw = Gateway(gcfg, profiles, policy, length=length,
+                     cluster=simulator_cluster(gcfg, profiles, recorder,
+                                               device=dev),
                      trace=recorder)
         try:
             if chaos is not None and chaos.bursts:
@@ -473,9 +473,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default="sim",
                     help="gateway cluster backend: any name from the "
                     "core.backends registry ('py' (or its legacy alias "
-                    "'sim') and 'vec' pick the simulator stepper, "
-                    "'engine' runs reduced real engines; 'jax' comes "
-                    "with a later slice)")
+                    "'sim'), 'vec' and 'jax' (on --device) pick the "
+                    "simulator, 'engine' runs reduced real engines)")
     ap.add_argument("--policy", default="mixing",
                     choices=("rl", "mixing", "mixing+cache", "jsq",
                              "rr", "sticky"),

@@ -9,7 +9,9 @@ the same calibrated ``HardwareProfile``, it produces the same latency
 replays ONE gateway arrival stream through
 
   * the Python-stepper simulator (``Cluster(backend="py")``),
-  * the vectorized simulator (``Cluster(backend="vec")``), and
+  * the vectorized simulator (``Cluster(backend="vec")``),
+  * the device-resident simulator (``Cluster(backend="jax")``, on
+    ``device``), and
   * real engines (``EngineClusterAdapter`` over the port's
     ``LLMInstance``, on the device the parameters live on),
 
@@ -24,9 +26,7 @@ a real modelling gap, not an anchoring artifact.
 The stream is engine-sized (prompts from a small set of lengths; decode
 lengths within the KV budget) and fully deterministic, so fidelity
 reports are reproducible across machines: every clock involved is
-virtual.  One deliberate difference from the reference: the default
-``backends`` leave out ``jax``, the device-resident simulator, which the
-port does not have yet.
+virtual.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ from repro_torch.core.profiles import HardwareProfile, profile_to_json
 from repro_torch.models import params as params_lib
 from repro_torch.serving.engine import LLMInstance
 from repro_torch.serving.gateway import (EngineClusterAdapter, Gateway,
-                                         GatewayConfig)
+                                         GatewayConfig, simulator_cluster)
 from repro_torch.serving.policies import make_gateway_policy
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import get_scheduler
@@ -70,10 +70,9 @@ class FidelityConfig:
     max_time: float = 600.0
     quantiles: Tuple[float, ...] = (0.5, 0.95, 0.99)
     # any core.backends registry names; pairwise deltas are reported
-    # for every pair, so the default covers both sim steppers and the
-    # real engine (the reference's default adds "jax", which the port's
-    # registry refuses until the device-resident simulator is ported)
-    backends: Tuple[str, ...] = ("py", "vec", "engine")
+    # for every pair, so the default covers every sim backend and the
+    # real engine
+    backends: Tuple[str, ...] = ("py", "vec", "jax", "engine")
     # multi-turn session stream + prefix-cache model: follow-up prompts
     # extend the prior turn's context in whole ``prefix_block`` blocks
     # (prompt lengths stay on a bounded ladder of block multiples) and
@@ -202,7 +201,9 @@ def _percentiles(vals: List[float], quantiles: Sequence[float]) -> Dict:
 def _backend_cluster(backend: str, profile: HardwareProfile,
                      fcfg: FidelityConfig, model_cfg, params, device):
     if backend != "engine":
-        return None                      # Gateway builds the sim cluster
+        return simulator_cluster(_gateway_cfg(fcfg, backend),
+                                 (profile,) * fcfg.n_instances,
+                                 device=device)
     if params is None:
         if model_cfg is None:
             raise ValueError("backend 'engine' needs model_cfg (and "
@@ -226,7 +227,8 @@ def run_backend(backend: str, profile: HardwareProfile,
                 params=None, device="cuda") -> Dict:
     """Serve the stream on one backend; returns the percentile report.
     The engine backend runs on the device ``params`` live on, or builds
-    seeded parameters on ``device`` when ``params`` is None."""
+    seeded parameters on ``device`` when ``params`` is None; the ``jax``
+    simulator runs on ``device``."""
     prof = serving_profile(profile, fcfg)
     reqs = _requests(stream)
     cluster = _backend_cluster(backend, prof, fcfg, model_cfg, params,
@@ -277,7 +279,8 @@ def run_fidelity(profile: HardwareProfile,
                  model_cfg=None, params=None, device="cuda") -> Dict:
     """The harness: one stream, every configured backend, all pairwise
     percentile deltas.  ``model_cfg``/``params`` (or ``device``) are
-    only read when ``fcfg.backends`` includes ``"engine"``."""
+    only read when ``fcfg.backends`` includes ``"engine"``; ``device``
+    also places the ``jax`` simulator."""
     fcfg = fcfg or FidelityConfig()
     stream = make_stream(fcfg)
     backends = {}

@@ -47,7 +47,6 @@ import numpy as np
 from repro_torch.core import predictor as pred_lib
 from repro_torch.core import rl_router as rl
 from repro_torch.core import workload as wl
-from repro_torch.core.simulator import Cluster
 from repro_torch.serving import trace as tr_lib
 from repro_torch.serving.chaos import ChaosInjector, FaultSchedule, \
     HealthTracker
@@ -355,6 +354,21 @@ class GatewayConfig:
     breaker_cooldown_s: float = 30.0
 
 
+def simulator_cluster(cfg: GatewayConfig, profiles, trace=None,
+                      device="cuda"):
+    """The gateway's built-in simulator cluster for ``cfg.backend``,
+    built through the ``core.backends`` registry; a backend whose pool
+    lives on a device (``jax``) places it on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    from repro_torch.core.backends import make_backend
+    profiles = tuple(profiles)
+    return make_backend(cfg.backend).make_cluster(
+        profiles, len(profiles), device=device, scheduler=cfg.scheduler,
+        dt=cfg.dt, chunked_prefill=cfg.chunked_prefill, n_slots=cfg.n_slots,
+        prefix_cache_tokens=cfg.prefix_cache_tokens,
+        prefix_block=cfg.prefix_block, trace=trace)
+
+
 class Gateway:
     """Event-driven serving gateway over a cluster backend."""
 
@@ -370,12 +384,7 @@ class Gateway:
                 if set_tr is not None:
                     set_tr(trace)
         else:
-            profiles = tuple(profiles)
-            self.cluster = Cluster(
-                profiles, len(profiles), cfg.scheduler, cfg.dt,
-                cfg.chunked_prefill, cfg.n_slots, backend=cfg.backend,
-                prefix_cache_tokens=cfg.prefix_cache_tokens,
-                prefix_block=cfg.prefix_block, trace=trace)
+            self.cluster = simulator_cluster(cfg, profiles, trace)
         self.policy = policy
         self.length = length or OracleLength()
         self.metrics = StreamMetrics(window=cfg.metrics_window,

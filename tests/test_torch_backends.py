@@ -2,20 +2,24 @@
 the JAX package's: the names it lists, its errors, and the places that
 resolve a backend through it -- ``Cluster(backend=)``, the gateway, the
 CLI, ``RoutingEnv`` and ``BatchedRLConfig`` with their deprecated
-``sim_backend`` spellings."""
+``sim_backend`` spellings -- and the device-resident ``jax`` pool it
+builds on the given device."""
 import warnings
 
 import pytest
+import torch
 
 from repro.core import backends as ref_backends
 from repro_torch.core import backends as pt_backends
 from repro_torch.core import batched_rl, rl_router as rl
+from repro_torch.core.jaxsim import JaxSimPool
 from repro_torch.core.profiles import V100_LLAMA2_7B as PROF
 from repro_torch.core.simulator import Cluster
 from repro_torch.core.vecsim import VecCluster, VecSimPool
 from repro_torch.core.workload import Scenario, generate, to_requests
 from repro_torch.launch import serve
-from repro_torch.serving.gateway import Gateway, GatewayConfig
+from repro_torch.serving.gateway import (Gateway, GatewayConfig,
+                                         simulator_cluster)
 from repro_torch.serving.policies import make_gateway_policy
 
 
@@ -68,13 +72,32 @@ def test_pool_less_backends_keep_the_reference_errors(call):
     assert str(got.value) == str(want.value)
 
 
-def test_jax_backend_names_the_later_slice():
+def test_jax_backend_builds_the_device_resident_pool():
+    """``make_backend("jax")`` builds the port's ``JaxSimPool`` on the
+    device asked for; ``RoutingEnv`` steps over one through the registry;
+    the default device is the card, which raises without one."""
     backend = pt_backends.make_backend("jax")
-    for call in (lambda: backend.make_pool(2),
-                 lambda: backend.make_cluster(PROF, 2),
-                 lambda: Cluster(PROF, 2, backend="jax")):
-        with pytest.raises(NotImplementedError, match="ROADMAP §2 item 5"):
-            call()
+    pool = backend.make_pool(3, device="cpu", min_span_ticks=0)
+    assert type(pool) is JaxSimPool and pool.E == 3
+    assert pool.device.type == "cpu" and pool.min_span_ticks == 0
+    cluster = backend.make_cluster(PROF, 2, device="cpu",
+                                   scheduler="bin_packing")
+    assert isinstance(cluster, VecCluster) and cluster.m == 2
+    assert type(cluster.pool) is JaxSimPool
+    assert cluster.pool.min_span_ticks == 8
+    env = rl.RoutingEnv(rl.RouterConfig(n_instances=2, seed=0), PROF,
+                        pool=pool, pool_ep=2)
+    env.reset(to_requests(generate(6, seed=1), rate=20.0, seed=2))
+    done = False
+    while not done:
+        _, _, done, _ = env.step(0)
+    assert len(env.cluster.completed) == 6
+    if not torch.cuda.is_available():
+        for call in (lambda: backend.make_pool(2),
+                     lambda: backend.make_cluster(PROF, 2),
+                     lambda: Cluster(PROF, 2, backend="jax")):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
 
 
 def test_cluster_kwarg_dispatches_through_registry():
@@ -92,9 +115,16 @@ def test_gateway_backend_resolves_through_registry():
     gw = Gateway(GatewayConfig(backend="vec"), (PROF,) * 2,
                  make_gateway_policy("jsq"))
     assert isinstance(gw.cluster, VecCluster)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Gateway(GatewayConfig(backend="jax"), (PROF,) * 2,
-                make_gateway_policy("jsq"))
+    gcfg = GatewayConfig(backend="jax", scheduler="least_work_left")
+    gw = Gateway(gcfg, (PROF,) * 2, make_gateway_policy("jsq"),
+                 cluster=simulator_cluster(gcfg, (PROF,) * 2,
+                                           device="cpu"))
+    assert type(gw.cluster.pool) is JaxSimPool
+    assert gw.cluster.m == 2
+    assert list(gw.cluster.pool.sched[gw.cluster.lane_ids]) == [2, 2]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Gateway(gcfg, (PROF,) * 2, make_gateway_policy("jsq"))
 
 
 def test_cli_backend_flags_resolve_through_registry():

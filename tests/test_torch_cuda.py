@@ -586,10 +586,14 @@ def test_cuda_online_publish_is_a_snapshot(cuda_device):
 @pytest.mark.cuda
 def test_cuda_calibration_of_reduced_qwen3(cuda_device):
     """The sweeps on the card (the kernels launched once a layer a
-    prefill and a decode step), the grids as x values, and a sane fit:
-    the prompts run to 8192 tokens, where the f32 flash kernel's
-    quadratic device time passes the host's dispatch time of a 2-layer
-    model, so the prefill slope is the card's and not host noise (the
+    prefill and a decode step), the grids as x values, and a sane fit.
+    The 2-layer model's decode step is host-bound: its host time is flat
+    in the batch and jitters by about a millisecond between calls
+    (chip_smoke.py phase 8e), so its fitted slope is that jitter over the
+    grid's span of resident tokens; the grid spans 512 to 32768 of them
+    to keep that slope small.  The prompts run to 16384 tokens, where the
+    f32 flash kernel's quadratic device time outgrows the host's dispatch
+    time, so the prefill slope is the card's and not host noise (the
     kernel takes head_dim 32, 64 or 128)."""
     from repro_torch.core import calibrate as cal
     cfg = get_config("qwen3-0.6b").reduced(head_dim=32)
@@ -597,18 +601,18 @@ def test_cuda_calibration_of_reduced_qwen3(cuda_device):
         cfg, torch.Generator(device=cuda_device).manual_seed(0),
         device=cuda_device)
     ccfg = cal.CalibrationConfig(
-        prompt_grid=(1024, 2048, 4096, 6144, 8192),
-        decode_grid=((1, 64), (2, 128), (4, 256), (8, 512)),
+        prompt_grid=(2048, 4096, 8192, 12288, 16384),
+        decode_grid=((1, 512), (2, 1024), (4, 2048), (8, 4096)),
         decode_steps_per_call=4, repeats=5, warmup=2,
-        prefill_cache_len=8192)
+        prefill_cache_len=16384)
     fa0, da0 = fa.launches, da.launches
     res = cal.calibrate(cfg, params, ccfg)
     calls = ccfg.warmup + ccfg.repeats
     assert fa.launches - fa0 == cfg.n_layers * 5 * calls
     assert da.launches - da0 == cfg.n_layers * 4 * calls * 4
-    assert [x for x, _ in res.prefill_samples] == [1024, 2048, 4096, 6144,
-                                                   8192]
-    assert [x for x, _ in res.decode_samples] == [64, 256, 1024, 4096]
+    assert [x for x, _ in res.prefill_samples] == [2048, 4096, 8192,
+                                                   12288, 16384]
+    assert [x for x, _ in res.decode_samples] == [512, 2048, 8192, 32768]
     assert all(t > 0 for _, t in res.prefill_samples + res.decode_samples)
     assert res.ok, cal.format_result(res)
 
@@ -858,3 +862,77 @@ def test_cuda_train_step_matches_cpu(cuda_device, arch):
     for pc, pg in zip(leaves(p_cpu), leaves(p_gpu)):
         scale = float(pc.grad.abs().max())
         assert float((pg.grad.cpu() - pc.grad).abs().max()) <= 1e-4 * scale
+
+
+# -- the device-resident simulator on the card --------------------------------
+
+def _sim_pool_run(monkeypatch, backend, n_eps=32, capture=()):
+    """benchmarks/bench_jaxsim.py's drive over a pool of ``n_eps``
+    episodes x 4 lanes (30 requests each); with ``capture``, copies of
+    the staged blocks of those call numbers, taken before their launch."""
+    from _torch_jaxsim_support import drive_pooled, reqs, stamps
+    from repro_torch.core.jaxsim import JaxSimPool
+    from repro_torch.core.vecsim import VecSimPool
+    from repro_torch.kernels.sim_rounds import ops as sim_ops
+    caps, real, calls = [], sim_ops.sim_rounds, [0]
+
+    def launch(layout, fb, ib):
+        if calls[0] in capture:
+            caps.append((layout, fb[:layout.n_f].clone(),
+                         ib[:layout.n_i].clone()))
+        calls[0] += 1
+        real(layout, fb, ib)
+    monkeypatch.setattr(sim_ops, "sim_rounds", launch)
+    pool = (VecSimPool(n_eps) if backend == "vec"
+            else JaxSimPool(n_eps, min_span_ticks=0))
+    streams = [reqs(30, seed=900 + e) for e in range(n_eps)]
+    drive_pooled(pool, streams, m=4)
+    return [stamps(rs) for rs in streams], pool, caps
+
+
+@pytest.mark.cuda
+def test_cuda_sim_rounds_matches_plain_on_a_pools_calls(cuda_device,
+                                                         monkeypatch):
+    """The round-loop kernel against its plain version on the card, on
+    staged calls of a 32-episode pool: every decision, clock and time
+    bit-equal, the backlog sums and span buckets within 1e-9 of their
+    scale (a summation order), and a second launch bit-equal."""
+    from repro_torch.kernels.sim_rounds import ops as sim_ops
+    sim_ops.launches = 0
+    _, pool, caps = _sim_pool_run(monkeypatch, "jax",
+                                  capture=(0, 3, 10, 30, 60))
+    monkeypatch.undo()
+    assert sim_ops.launches == pool.n_jax_calls > 30 and len(caps) >= 4
+    for layout, fb, ib in caps:
+        runs = []
+        for plain in (False, False, True):
+            f, i = fb.clone(), ib.clone()
+            (sim_ops.sim_rounds_plain if plain else sim_ops.sim_rounds)(
+                layout, f, i)
+            runs.append(layout.carry_out(f, i))
+        torch.cuda.synchronize()
+        k1, k2, want = runs
+        for name, w in want.items():
+            if name in ("bk_s", "bk_t", "d_lane", "lane_ivv"):
+                scale = float(w.abs().max())
+                assert float((k1[name] - w).abs().max()) <= 1e-9 * max(
+                    scale, 1e-300), name
+            elif w.dtype == torch.float64:
+                assert torch.equal(k1[name].view(torch.int64),
+                                   w.view(torch.int64)), name
+            else:
+                assert torch.equal(k1[name], w), name
+            bits = (lambda t: t.view(torch.int64)
+                    if t.dtype == torch.float64 else t)
+            assert torch.equal(bits(k1[name]), bits(k2[name])), name
+        assert int(want["round_no"]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_jax_pool_matches_vec(cuda_device, monkeypatch):
+    """The pool on the card (every call through the kernel) serves the
+    same 32 episodes as the numpy pool, request by request."""
+    want, _, _ = _sim_pool_run(monkeypatch, "vec")
+    got, pool, _ = _sim_pool_run(monkeypatch, "jax")
+    assert pool.n_jax_calls > 0 and pool.n_numpy_calls == 0
+    assert got == want

@@ -6,7 +6,9 @@ and over reduced qwen3-0.6b engines holding the reference's parameters,
 for the default stream, the saturating stream and the multi-turn session
 stream with a prefix cache.  Both sides run with ``backends`` that leave
 out ``jax``: the reference's device-resident simulator does not import
-on this tree, and the port has none yet."""
+on this tree (the port's runs against the reference's in
+tests/test_torch_jaxsim*.py, and against ``vec`` here, where the
+gateway's one-tick spans keep it on its host rounds)."""
 import dataclasses
 import json
 
@@ -20,6 +22,7 @@ from repro.core.profiles import V100_LLAMA2_7B as REF_V100
 from repro.models import params as ref_params
 from repro.serving import fidelity as ref_fid
 from repro_torch.configs import get_config
+from repro_torch.core import jaxsim
 from repro_torch.core.profiles import V100_LLAMA2_7B as PT_V100
 from repro_torch.models import params as pt_params
 from repro_torch.serving import fidelity as pt_fid
@@ -59,8 +62,7 @@ def reduced_qwen3():
 def test_config_defaults_and_the_one_difference():
     ref, port = (dataclasses.asdict(ref_fid.FidelityConfig()),
                  dataclasses.asdict(pt_fid.FidelityConfig()))
-    assert ref.pop("backends") == ("py", "vec", "jax", "engine")
-    assert port.pop("backends") == ("py", "vec", "engine")
+    assert port["backends"] == ("py", "vec", "jax", "engine")
     assert port == ref
     assert pt_fid.METRICS == ref_fid.METRICS
 
@@ -86,6 +88,26 @@ def test_simulator_reports_equal_the_reference(kind):
             assert pct["abs"] == 0.0 and pct["rel"] == 0.0
     assert rep["profile"]["capacity_tokens"] <= port.capacity_tokens
     assert rep["profile"]["max_batch"] == port.n_slots
+
+
+@pytest.mark.parametrize("kind", sorted(STREAMS))
+def test_jax_leg_runs_host_rounds_and_equals_vec(kind, monkeypatch):
+    """The ``jax`` leg (on the CPU) reports what ``vec`` reports; the
+    gateway advances one tick a call, under the pool's 8-tick minimum
+    span, so its one pool runs only the inherited numpy rounds."""
+    pools = []
+
+    class CountedPool(jaxsim.JaxSimPool):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pools.append(self)
+    monkeypatch.setattr(jaxsim, "JaxSimPool", CountedPool)
+    _, port = _configs(kind, ("py", "vec", "jax"))
+    rep = pt_fid.run_fidelity(PT_V100, port, device="cpu")
+    assert rep["backends"]["jax"] == rep["backends"]["vec"]
+    assert rep["backends"]["jax"]["completed"] == port.n_requests
+    assert len(pools) == 1 and pools[0].device.type == "cpu"
+    assert pools[0].n_jax_calls == 0 and pools[0].n_numpy_calls > 0
 
 
 @pytest.mark.parametrize("kind", sorted(STREAMS))

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 import textwrap
+import warnings
 
 import pytest
 import torch
@@ -105,11 +106,14 @@ def test_entry_points_default_to_the_card():
 def test_serve_cli_refuses_unported_modes(monkeypatch, capsys):
     from repro_torch.core import calibrate as cal
     from repro_torch.launch import serve
+    # the device-resident simulator is ported: its modes serve
     for argv in (["--mode", "gateway", "--backend", "jax"],
                  ["--mode", "gateway", "--backend", "jax", "--online"],
                  ["--mode", "gateway", "--sim-backend", "jax"]):
-        with pytest.raises(SystemExit, match="later slice"):
-            serve.main(argv + ["--device", "cpu"])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            serve.main(argv + ["--device", "cpu", "--requests", "12"])
+        assert "served n=12" in capsys.readouterr().out
     # calibration is ported: it runs (on stub sweeps here) and exits 0
     monkeypatch.setattr(cal, "sweep_prefill",
                         lambda *a: [(32.0, 0.01), (64.0, 0.02)])

@@ -10,6 +10,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import cluster_manager as ref_cm
 from repro.core import rl_router as ref_rl
@@ -188,9 +189,11 @@ def test_managed_cluster_saves_and_restores_the_router(tmp_path):
 @pytest.mark.parametrize("kw", [{"backend": "vec"}, {"backend": "jax"},
                                 {"sim_backend": "jax"}, {"pool": "vec"}])
 def test_routing_env_refuses_unported_backends(kw):
-    """Only the device-resident backend is still refused (when ``reset``
-    builds the cluster, as the reference builds it there); ``vec``, the
-    deprecated ``sim_backend`` spelling and a shared pool step."""
+    """Every backend is ported: ``vec``, the deprecated ``sim_backend``
+    spelling and a shared pool step; the device-resident ``jax`` backend
+    builds its pool on the card when ``reset`` builds the cluster (as the
+    reference builds it there), so without a card it raises, asking for
+    the CPU (its CPU pool steps in tests/test_torch_backends.py)."""
     import warnings
     from repro_torch.core.vecsim import VecCluster, VecSimPool
     if kw.get("pool") == "vec":
@@ -200,8 +203,8 @@ def test_routing_env_refuses_unported_backends(kw):
         warnings.simplefilter("ignore", DeprecationWarning)
         env = pt_rl.RoutingEnv(cfg, PT_V100, **kw)
     reqs = _stream(pt_wl, n=6)(0)
-    if "jax" in kw.values():
-        with pytest.raises(NotImplementedError, match="later slice"):
+    if "jax" in kw.values() and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
             env.reset(reqs)
         return
     env.reset(reqs)

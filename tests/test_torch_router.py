@@ -341,10 +341,12 @@ def test_simulator_and_legacy_policies_match_reference(name):
 
 
 def test_simulator_refuses_unported_backends():
-    """Only the device-resident backend is still refused; ``vec``
-    resolves through the registry."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pt_sim.Cluster(PT_V100, 2, backend="jax")
+    """Every backend resolves through the registry: ``vec``, and the
+    device-resident ``jax``, whose pool defaults to the card and so
+    raises without one, asking for the CPU."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pt_sim.Cluster(PT_V100, 2, backend="jax")
     assert type(pt_sim.Cluster(PT_V100, 2, backend="vec")).__name__ == \
         "VecCluster"
 
