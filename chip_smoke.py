@@ -194,7 +194,15 @@ any failure raises and the process exits non-zero:
      whose top-k expert set differs from the prefill's are counted a
      layer, the error is printed with the top-1 agreement, and the 5%
      bound is asserted on the same steps rerun with the prefill's experts
-     forced;
+     forced; and, while deepseek-moe-16b is held, its expert-parallel path
+     ("9a-ep"): a one-rank NCCL group, a (data=1, model=1) mesh and a
+     parallel context with ``ep_axes=("data",)``, a 512-token prefill and
+     8 decode steps with every routed layer through ``moe_ep`` (27 x 9
+     calls counted, 0 pairs dropped, no host copies), against the same
+     run without a context (``ragged``, then ``gather``): logits within
+     2e-2 of max |logit| (every row's experts compared layer by layer;
+     where any differs, the bound is held on the run without a context
+     rerun with the EP run's experts forced), both walls printed;
   10. LM training (phase 9's weights freed first), each part's launch
      counts read around it: (a) one f32 AdamW train step of phase 4's
      seven reduced families on the card (the kernels and their
@@ -211,7 +219,24 @@ any failure raises and the process exits non-zero:
      step profiled; (c) full-width falcon-mamba-7b under
      ``launch.steps.build_train_step(cfg, "adafactor")``, batch 1 x 1024,
      4 steps on one repeated batch: the loss finite and falling, the
-     scan 128 forward and 64 backward launches a step, peak memory.
+     scan 128 forward and 64 backward launches a step, peak memory;
+  11. the mesh paths, a correctness run (phase 10's weights freed
+     first): 4 processes (``spawn``) time-sharing the one card, a gloo
+     group through a ``FileStore`` under ``build/mesh_store/``, the
+     port's collectives on CUDA tensors (through the host where gloo has
+     no CUDA implementation of the op; the copies counted): (b)
+     ``moe_ep`` at deepseek-moe-16b's MoE width on a (data=2, model=2)
+     mesh, 512 tokens a data shard, capacity factor 4.0, against
+     ``moe_ragged`` of all the tokens with every expert within 2e-2 of
+     max |y| (bf16), 0 dropped, and the pairs dropped at the config's
+     1.25; (c) ``pipeline_apply`` over 4 stages, each one full-width
+     qwen3-0.6b decoder layer, 8 microbatches [1, 512, 1024] bf16,
+     against the 4 layers in sequence within 1e-5 of max |y|; (d)
+     ``make_compressed_dp_grad_fn`` over qwen3-0.6b's whole gradient
+     from a [1, 256] batch a rank, each leaf within 5% of its max |g| of
+     the f32 all-reduced mean, the collective bytes printed.  Each part's
+     wall and host copies are printed for every rank; a failing rank
+     fails the phase.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -2684,6 +2709,9 @@ DECODE_CHECK_STEPS = 3
 DECODE_CHECK_TOL = 0.05      # of max |logit|, for models without routing
 MOE_CHECK_ROWS = (8, 512)
 MOE_CHECK_TOL = 2e-2         # of max |y| between the three MoE paths
+# 9 (a): the full-width model through moe_ep on a one-rank mesh
+EP_PREFILL, EP_DECODE_STEPS = 512, 8
+EP_TOL = 2e-2                # of max |logit|, against the run without a mesh
 
 
 def gather_with_copies(torch, m, cfg, p, x):
@@ -2771,23 +2799,26 @@ def clone_tree(x):
 class RouteProbe:
     """Wraps ``models.moe._router`` for one forward pass: records each
     call's top-k experts of the last row (one call a routed layer, in
-    layer order); with ``forced`` (such a record), the last row takes the
-    recorded experts instead, weighted by the call's own probabilities
-    there, renormalised as the router does."""
+    layer order), or of every row with ``all_rows``; with ``forced`` (such
+    a record), those rows take the recorded experts instead, weighted by
+    the call's own probabilities there, renormalised as the router
+    does."""
 
-    def __init__(self, torch, moe, forced=None):
+    def __init__(self, torch, moe, forced=None, all_rows=False):
         self.torch, self.moe, self.forced = torch, moe, forced
+        self.all_rows = all_rows
         self.inner = moe._router
         self.calls = []
 
     def __call__(self, p, x, cfg):
         probs, idx, w = self.inner(p, x, cfg)
+        rows = slice(None) if self.all_rows else -1
         if self.forced is not None:
             idx = idx.clone()
-            idx[-1] = self.forced[len(self.calls)]
+            idx[rows] = self.forced[len(self.calls)]
             w = probs.gather(1, idx)
             w = w / self.torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-        self.calls.append(idx[-1].clone())
+        self.calls.append(idx[rows].clone())
         return probs, idx, w
 
     def __enter__(self):
@@ -2882,6 +2913,113 @@ def decode_check(torch, m, cfg, params, name, routed):
     return launches, out
 
 
+def store_path(name: str) -> str:
+    """A fresh ``FileStore`` file for a process group, under ``build/``."""
+    path = os.path.join(ROOT, "build", "mesh_store", f"{name}_{os.getpid()}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def ep_model_check(torch, m, cfg, params):
+    """9 (a), the expert-parallel path on the full-width model: a
+    one-rank NCCL group, a (data=1, model=1) mesh and a parallel context
+    with ``ep_axes=("data",)``; a prefill of EP_PREFILL tokens and
+    EP_DECODE_STEPS decode steps with every routed layer through
+    ``moe_ep`` (its call counter must show each one, its drop counter
+    none: one shard's capacity holds every pair), then the same without a
+    context (``ragged`` in the prefill, ``gather`` in the decode steps).
+    The logits of every step agree within EP_TOL of max |logit|.  Every
+    routed layer's expert choice of every row is compared between the
+    two runs; where any differs (bf16 rounding between two paths can
+    flip a near-tie), the bound is asserted on the run without a context
+    rerun with the EP run's experts forced, and the unforced error is
+    printed.  Launch counts are read around the EP run."""
+    import torch.distributed as dist
+    n_routed = sum(cfg.layer_is_moe(i) for i in range(cfg.n_scan_layers))
+    path = store_path("nccl")
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = m.mesh_lib.make_mesh((1, 1), ("data", "model"))
+        ctx = m.dist_ctx.ParallelContext(mesh=mesh, batch_axes=("data",),
+                                         model_axis="model",
+                                         ep_axes=("data",))
+        # the communicators start before the timed runs
+        m.coll.all_to_all(torch.zeros(1, device="cuda"),
+                          m.coll.axis_group(mesh, ("data",)))
+        m.coll.all_reduce(torch.zeros(1, device="cuda"), "sum",
+                          m.coll.axis_group(mesh, ("model",)))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (1, EP_PREFILL + EP_DECODE_STEPS),
+                               generator=gen, device="cuda")
+
+        def run(context, forced=None):
+            scope = m.dist_ctx.use(context) if context is not None \
+                else contextlib.nullcontext()
+            with torch.no_grad(), scope, RouteProbe(
+                    torch, m.moe, forced, all_rows=True) as probe:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = m.model_lib.prefill(
+                    params, cfg, tokens[:, :EP_PREFILL],
+                    cache_len=EP_PREFILL + EP_DECODE_STEPS)
+                steps = [logits]
+                for i in range(EP_DECODE_STEPS):
+                    logits, cache = m.model_lib.decode_step(
+                        params, cfg, cache, tokens[:, EP_PREFILL + i])
+                    steps.append(logits)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            return torch.stack(steps).float(), probe.calls, wall
+
+        m.moe.ep_calls = m.moe.ep_dropped = 0
+        m.coll.reset_counts()
+        reset_launches(m)
+        ep_logits, ep_routes, ep_wall = run(ctx)
+        launches = read_launches(m)
+        calls, dropped = m.moe.ep_calls, m.moe.ep_dropped
+        plain_logits, plain_routes, plain_wall = run(None)
+    finally:
+        dist.destroy_process_group()
+        os.remove(path)
+    assert calls == n_routed * (1 + EP_DECODE_STEPS), (calls, n_routed)
+    assert dropped == 0, dropped
+    assert m.coll.host_copies == 0, m.coll.host_copies
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    assert launches["decode_attention"] == cfg.n_layers * EP_DECODE_STEPS
+    assert bool(torch.isfinite(ep_logits).all()), "non-finite logits"
+    assert ep_logits.shape == (1 + EP_DECODE_STEPS, 1, cfg.vocab_size)
+    differ = sum(int((a != b).any(-1).sum())
+                 for a, b in zip(ep_routes, plain_routes))
+    scale = float(plain_logits.abs().max())
+    err = float((ep_logits - plain_logits).abs().max())
+    out = dict(moe_ep_calls=calls, dropped=dropped, ep_wall_s=ep_wall,
+               plain_wall_s=plain_wall, rows_routed_differently=differ,
+               max_abs_logit=scale, err=err, rel=err / scale,
+               launches=launches)
+    if differ:
+        forced, _, _ = run(None, forced=ep_routes)
+        out["forced_rel"] = float((ep_logits - forced).abs().max()) / scale
+        rel = out["forced_rel"]
+    else:
+        rel = out["rel"]
+    log(f"  (9a-ep) deepseek-moe-16b through moe_ep on a one-rank NCCL "
+        f"mesh (data=1, model=1): prefill {EP_PREFILL} + "
+        f"{EP_DECODE_STEPS} decode steps, {calls} moe_ep calls ("
+        f"{n_routed} routed layers x {1 + EP_DECODE_STEPS} passes), "
+        f"{dropped} pairs dropped, wall {ep_wall:.3f} s; without a context "
+        f"(ragged, then gather) {plain_wall:.3f} s; rows routed "
+        f"differently {differ} of {n_routed * (EP_PREFILL + EP_DECODE_STEPS)}"
+        f"; max |logit| {scale:.3f}, err {err:.4e} = {out['rel']:.4f} x"
+        + (f", with the EP run's experts forced {rel:.4f} x" if differ
+           else "") + f" (tol {EP_TOL}); launches {launches}")
+    assert rel <= EP_TOL, out
+    return launches, out
+
+
 def mla_bytes_per_token(cfg):
     """The MLA cache per token (bf16 latent + rope key a layer) beside the
     decompressed K/V that standard attention would cache."""
@@ -2952,6 +3090,8 @@ def families_phase(torch, np, m, ckpt_dir):
     launches["moe_impls"] = read_launches(m)
     launches["check_deepseek"], out["check_deepseek"] = decode_check(
         torch, m, cfg, params, "deepseek-moe-16b", routed=True)
+    launches["mesh_deepseek_ep"], out["mesh_deepseek_ep"] = ep_model_check(
+        torch, m, cfg, params)
     del params
     out["peak_gb_deepseek"] = release(torch, "deepseek-moe-16b: the MoE "
                                       "and decode checks")
@@ -3310,6 +3450,309 @@ def train_phase(torch, np, m):
     return launches, out
 
 
+# -- phase 11: the mesh paths on four ranks ---------------------------------
+
+MESH_RANKS = 4
+# (b) moe_ep at deepseek-moe-16b's MoE width on (data=2, model=2): tokens a
+# data shard, the capacity factor that drops nothing, bf16 bound
+MESH_TOKENS = 512
+MESH_CF = 4.0
+MESH_MOE_TOL = 2e-2          # of max |y|, against moe_ragged of all tokens
+# (c) pipeline_apply: 4 stages of one full-width qwen3-0.6b decoder layer
+MESH_MICRO, MESH_SEQ = 8, 512
+MESH_PIPE_TOL = 1e-5         # of max |y|: the same kernels on the same inputs
+# (d) the int8 all-reduce of qwen3-0.6b's gradient, [1, 256] a rank
+MESH_GRAD_SEQ = 256
+MESH_GRAD_TOL = 0.05         # of each leaf's max |g|
+
+
+def mesh_moe_part(torch, m, rank):
+    """11 (b): one MoE layer of deepseek-moe-16b (d 2048, 64 experts of
+    1408, top-6, 2 shared), the same seeded weights and tokens on every
+    rank; each data shard's MESH_TOKENS through ``moe_ep`` against
+    ``moe_ragged`` of all the tokens with every expert, then the pairs
+    dropped at the config's own capacity factor."""
+    base = m.get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=MESH_CF))
+    mesh = m.mesh_lib.make_mesh((2, 2), ("data", "model"))
+    ctx = m.dist_ctx.ParallelContext(mesh=mesh, batch_axes=("data",),
+                                     model_axis="model", ep_axes=("data",))
+    dtype = m.params_lib.torch_dtype(cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = m.params_lib._init_moe(gen, cfg, (), dtype, torch.device("cuda"), 0)
+    x = torch.randn((2 * MESH_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    x_local = m.sharding.local_shard(x, (("data",), None), mesh)
+    coords = m.mesh_lib.mesh_coords(mesh)
+    out = {"coords": coords}
+    with torch.no_grad():
+        want, aux_want = m.moe.moe_ragged(p, cfg, x)
+        for label, c in (("cf", cfg), ("cf_config", base)):
+            m.moe.ep_calls = m.moe.ep_dropped = 0
+            m.coll.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with m.dist_ctx.use(ctx):
+                y, aux = m.moe.moe_ep(p, c, x_local)
+            torch.cuda.synchronize()
+            out[label] = dict(wall_s=time.perf_counter() - t0,
+                              dropped=m.moe.ep_dropped,
+                              calls=m.moe.ep_calls, aux=float(aux),
+                              host_copies=m.coll.host_copies,
+                              host_copy_bytes=m.coll.host_copy_bytes)
+            if label == "cf":
+                rows = slice(coords["data"] * MESH_TOKENS,
+                             (coords["data"] + 1) * MESH_TOKENS)
+                scale = float(want.float().abs().max())
+                err = float((y.float() - want[rows].float()).abs().max())
+                out["cf"].update(err=err, scale=scale,
+                                 aux_ragged=float(aux_want))
+                assert m.moe.ep_dropped == 0, out
+                assert err <= MESH_MOE_TOL * scale, out
+    return out
+
+
+def mesh_pipeline_part(torch, m, rank):
+    """11 (c): ``pipeline_apply`` over the 4 ranks, stage s one full-width
+    qwen3-0.6b decoder layer (flash attention, the SwiGLU FFN; its own
+    seeded weights on rank s), MESH_MICRO microbatches [1, MESH_SEQ, d]
+    bf16; against the 4 layers run in sequence on each rank."""
+    cfg = dataclasses.replace(m.get_config("qwen3-0.6b"),
+                              n_layers=MESH_RANKS)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = m.params_lib.init_params(cfg, gen, device="cuda")
+    layers = [m.model_lib._index(params["layers"][0], s)
+              for s in range(MESH_RANKS)]
+    dtype = m.params_lib.torch_dtype(cfg.dtype)
+    x = torch.randn((MESH_MICRO, 1, MESH_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    positions = torch.arange(MESH_SEQ, device="cuda")[None]
+
+    def stage(p, h):
+        return m.model_lib._layer(p, cfg, 0, h, positions, "train", None,
+                                  None, 0)[0]
+    mesh = m.mesh_lib.make_mesh((MESH_RANKS,), ("pipe",))
+    with torch.no_grad():
+        seq = []
+        for i in range(MESH_MICRO):
+            h = x[i]
+            for p in layers:
+                h = stage(p, h)
+            seq.append(h)
+        seq = torch.stack(seq)
+        m.coll.reset_counts()
+        reset_launches(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = m.pipeline.pipeline_apply(stage, mesh, "pipe", layers[rank], x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches(m)
+    scale = float(seq.float().abs().max())
+    err = float((y.float() - seq.float()).abs().max())
+    out = dict(wall_s=wall, err=err, scale=scale,
+               bit_equal=bool(torch.equal(y, seq)), launches=launches,
+               flash_launches=launches["flash_attention"],
+               host_copies=m.coll.host_copies,
+               host_copy_bytes=m.coll.host_copy_bytes)
+    assert bool(torch.isfinite(y).all()) and y.shape == x.shape, out
+    assert err <= MESH_PIPE_TOL * scale, out
+    assert launches["flash_attention"] == MESH_MICRO, launches
+    return out
+
+
+def mesh_grad_part(torch, m, rank):
+    """11 (d): ``make_compressed_dp_grad_fn`` over qwen3-0.6b's whole
+    gradient tree (the same seeded weights on every rank, a seeded
+    [1, MESH_GRAD_SEQ] batch of its own on each), against the f32 mean
+    of the ranks' gradients all-reduced: each leaf within MESH_GRAD_TOL
+    of its max |g|."""
+    cfg = m.get_config("qwen3-0.6b")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    params = m.params_lib.init_params(cfg, gen, device="cuda")
+    gen.manual_seed(100 + rank)
+    tok = torch.randint(0, cfg.vocab_size, (1, MESH_GRAD_SEQ + 1),
+                        generator=gen, device="cuda")
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    mesh = m.mesh_lib.make_mesh((MESH_RANKS,), ("data",))
+
+    def loss(p, b):
+        return m.model_lib.loss_fn(p, cfg, b)[0]
+    grad_fn = m.compression.make_compressed_dp_grad_fn(loss, mesh,
+                                                       ("data",))
+    m.coll.reset_counts()
+    reset_launches(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(m)
+    copies, copy_bytes = m.coll.host_copies, m.coll.host_copy_bytes
+    leaves = m.params_lib.leaves(params)
+    ps = [p.detach().requires_grad_(True) for p in leaves]
+    exact = torch.autograd.grad(
+        loss(m.params_lib.tree_unflatten(params, ps), batch), ps)
+    t0 = time.perf_counter()
+    flat = torch.cat([g.float().reshape(-1) for g in exact])
+    m.coll.all_reduce(flat, "sum", torch.distributed.group.WORLD)
+    flat /= MESH_RANKS
+    torch.cuda.synchronize()
+    f32_wall = time.perf_counter() - t0
+    worst, start = 0.0, 0
+    for g, q in zip(exact, m.params_lib.leaves(grads)):
+        ref = flat[start:start + g.numel()].reshape(g.shape)
+        start += g.numel()
+        rel = float((q.float() - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        worst = max(worst, rel)
+    n = flat.numel()
+    out = dict(wall_s=wall, f32_allreduce_wall_s=f32_wall, leaves=len(ps),
+               launches=launches,
+               elements=n, worst_rel=worst, host_copies=copies,
+               host_copy_bytes=copy_bytes,
+               bytes_int8_payload=n, bytes_int32_allreduce=4 * n,
+               bytes_f32_allreduce=4 * n)
+    assert worst <= MESH_GRAD_TOL, out
+    # the forward again in the backward under remat
+    assert launches["flash_attention"] == cfg.n_layers * (
+        2 if cfg.remat else 1), launches
+    assert launches["flash_attention_bwd"] == cfg.n_layers, launches
+    return out
+
+
+def mesh_worker(rank, world, store, out_dir):
+    """One rank of phase 11: a gloo group through a ``FileStore``, the
+    port's collectives on CUDA tensors of the one card, parts (b)-(d);
+    writes its results to ``out_dir/rank_<rank>.json``."""
+    sys.path.insert(0, SRC)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import compression, pipeline, sharding
+    from repro_torch.distributed import context as dist_ctx
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.sim_rounds import ops as sim_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    from repro_torch.models import params as params_lib
+    m = argparse.Namespace(
+        get_config=get_config, coll=coll, compression=compression,
+        pipeline=pipeline, sharding=sharding, dist_ctx=dist_ctx,
+        mesh_lib=mesh_lib, model_lib=model_lib, moe=moe,
+        params_lib=params_lib, fa=fa, da=da, ms=ms, sim_ops=sim_ops)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = {}
+        for name, part in (("moe_ep", mesh_moe_part),
+                           ("pipeline", mesh_pipeline_part),
+                           ("compressed_grads", mesh_grad_part)):
+            dist.barrier()
+            t0 = time.perf_counter()
+            out[name] = part(torch, m, rank)
+            out[name]["part_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        write_json(os.path.join(out_dir, f"rank_{rank}.json"), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch):
+    """Phase 11: the mesh paths on MESH_RANKS processes time-sharing the
+    one card over gloo (``spawn``; a ``FileStore`` under ``build/``):
+    (b) ``moe_ep``, (c) ``pipeline_apply``, (d) the int8 gradient
+    all-reduce (:func:`mesh_worker`).  A correctness run: four ranks on
+    one card over gloo say nothing about NVLink.  A failing rank fails the
+    phase.  Returns the kernel launches of (c) and (d), summed over the
+    ranks, and every rank's results."""
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    store = store_path("gloo")
+    out_dir = os.path.join(ROOT, "build", "mesh_phase")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        mp.start_processes(mesh_worker, args=(MESH_RANKS, store, out_dir),
+                           nprocs=MESH_RANKS, join=True,
+                           start_method="spawn")
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    out = dict(ranks=ranks, phase_s=time.perf_counter() - t_phase)
+    moe_r, pipe, grad = (ranks[0][k] for k in ("moe_ep", "pipeline",
+                                               "compressed_grads"))
+    dropped = sum(r["moe_ep"]["cf_config"]["dropped"] for r in ranks
+                  if r["moe_ep"]["coords"]["model"] == 0)
+    log(f"  (11b) moe_ep at deepseek-moe-16b's MoE width, (data=2, "
+        f"model=2), {MESH_TOKENS} tokens a data shard: max err "
+        + ", ".join(f"{r['moe_ep']['cf']['err']:.3e}" for r in ranks)
+        + f" against ragged's max |y| {moe_r['cf']['scale']:.3f} (tol "
+        f"{MESH_MOE_TOL} x), 0 dropped at capacity factor {MESH_CF}; "
+        f"{dropped} of {2 * MESH_TOKENS * 6} pairs dropped at the "
+        f"config's 1.25; aux {moe_r['cf']['aux']:.4f} (ragged over all "
+        f"{moe_r['cf']['aux_ragged']:.4f}); walls "
+        + ", ".join(f"{r['moe_ep']['cf']['wall_s']:.3f}" for r in ranks)
+        + " s; host copies a rank "
+        + ", ".join(f"{r['moe_ep']['cf']['host_copies']} "
+                    f"({r['moe_ep']['cf']['host_copy_bytes']} B)"
+                    for r in ranks))
+    log(f"  (11c) pipeline_apply, 4 stages of one qwen3-0.6b layer, "
+        f"{MESH_MICRO} microbatches [1, {MESH_SEQ}, 1024] bf16: err "
+        + ", ".join(f"{r['pipeline']['err']:.3e}" for r in ranks)
+        + f" of max |y| {pipe['scale']:.3f} (tol {MESH_PIPE_TOL} x), "
+        "bit-equal " + ", ".join(str(r["pipeline"]["bit_equal"])
+                                 for r in ranks)
+        + "; walls " + ", ".join(f"{r['pipeline']['wall_s']:.3f}"
+                                 for r in ranks)
+        + " s; flash launches a rank "
+        + ", ".join(str(r["pipeline"]["flash_launches"]) for r in ranks)
+        + "; host copies a rank " + ", ".join(
+            f"{r['pipeline']['host_copies']} "
+            f"({r['pipeline']['host_copy_bytes']} B)" for r in ranks))
+    log(f"  (11d) int8 all-reduce of qwen3-0.6b's gradient ({grad['leaves']}"
+        f" leaves, {grad['elements']} elements), [1, {MESH_GRAD_SEQ}] a "
+        f"rank: worst leaf err / max |g| "
+        + ", ".join(f"{r['compressed_grads']['worst_rel']:.4f}"
+                    for r in ranks)
+        + f" (tol {MESH_GRAD_TOL}); bytes: int8 payload "
+        f"{grad['bytes_int8_payload']}, the int32 all-reduce "
+        f"{grad['bytes_int32_allreduce']}, f32 "
+        f"{grad['bytes_f32_allreduce']}; walls (grad + quantized "
+        "all-reduce) " + ", ".join(
+            f"{r['compressed_grads']['wall_s']:.3f}" for r in ranks)
+        + " s, the f32 all-reduce " + ", ".join(
+            f"{r['compressed_grads']['f32_allreduce_wall_s']:.3f}"
+            for r in ranks) + " s; host copies a rank " + ", ".join(
+            f"{r['compressed_grads']['host_copies']} "
+            f"({r['compressed_grads']['host_copy_bytes']} B)"
+            for r in ranks))
+    log(f"  mesh phase {out['phase_s']:.1f} s (a correctness run: "
+        f"{MESH_RANKS} ranks time-share one card over gloo)")
+    launches = {}
+    for path, part in (("mesh_pipeline", "pipeline"),
+                       ("mesh_compressed_grads", "compressed_grads")):
+        launches[path] = {k: sum(r[part]["launches"][k] for r in ranks)
+                          for k in ranks[0][part]["launches"]}
+    return launches, out
+
+
 def timed_build(build):
     """The kernel library's path, built if need be, and the seconds the
     build took."""
@@ -3349,6 +3792,8 @@ def main(argv=None) -> int:
     from repro_torch.core import batched_rl, dqn, profiles, rl_router as rl
     from repro_torch.core import calibrate as cal
     from repro_torch.core import jaxsim, state, vecsim
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import context as dist_ctx
     from repro_torch.core import policies as legacy
     from repro_torch.core import simulator as sim
     from repro_torch.core import predictor as pred_lib
@@ -3358,6 +3803,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.sim_rounds import ops as sim_ops
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model as model_lib
     from repro_torch.models import moe as moe_mod
@@ -3386,7 +3832,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
-    log(f"[1/10] environment: {gpu}; torch {torch.__version__}, CUDA "
+    log(f"[1/11] environment: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     mods = argparse.Namespace(
         get_config=get_config, params_lib=params_lib, profiles=profiles,
@@ -3403,13 +3849,14 @@ def main(argv=None) -> int:
         Gateway=Gateway, GatewayConfig=GatewayConfig,
         OracleLength=OracleLength, sim=sim, legacy=legacy, cal=cal,
         fid=fid, moe=moe_mod, model_lib=model_lib, jaxsim=jaxsim,
-        vecsim=vecsim, state=state, sim_ops=sim_ops)
+        vecsim=vecsim, state=state, sim_ops=sim_ops, mesh_lib=mesh_lib,
+        dist_ctx=dist_ctx, coll=coll)
     # nvcc builds the kernels in the background while phase 5b, which
     # launches none of them, runs
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(timed_build, build)
         if not args.kernels_only:
-            log("[5b/10] the router's learning path: predictor and DQN "
+            log("[5b/11] the router's learning path: predictor and DQN "
                 "router trained on the card, checkpointed, serving the "
                 "simulator (while the kernels build)")
             router_launches, router, ckpt_dir = router_phase(torch, np,
@@ -3424,11 +3871,11 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    log("[2/10] kernels against their plain versions on the card")
+    log("[2/11] kernels against their plain versions on the card")
     errs = check_kernels(torch, fa, da, ms, quantize_kv)
     errs.update(check_backwards(torch, fa, ms))
 
-    log("[3/10] timing (CUDA events, median of "
+    log("[3/11] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
     kv_rng = np.random.default_rng(2)
     kv_lens = [int(x) for x in kv_rng.integers(100, 1025, 7)] + [1100]
@@ -3444,19 +3891,19 @@ def main(argv=None) -> int:
                                    "max_abs_err": errs, "times": times})
         return 0
 
-    log("[4/10] reduced models: card (kernels) against CPU (plain)")
+    log("[4/11] reduced models: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
 
-    log("[5/10] serve full-width qwen3-0.6b through serve_engine")
+    log("[5/11] serve full-width qwen3-0.6b through serve_engine")
     launches, served, qwen = serve(torch, np, mods)
     torch.cuda.empty_cache()
 
-    log("[5c/10] the router's scale-up on the card: batched training over "
+    log("[5c/11] the router's scale-up on the card: batched training over "
         "py, vec and jax, the heterogeneous stream, online learning under "
         "drift")
     scale_launches, scale_up = scale_up_phase(torch, np, mods)
 
-    log("[5d/10] the device-resident simulator: bench_jaxsim's schedule "
+    log("[5d/11] the device-resident simulator: bench_jaxsim's schedule "
         "through py, vec, jax and the hybrid at 32 and 512 episodes, the "
         "round-loop kernel against its plain version, featurize_jax_many")
     sim = sim_phase(torch, np, mods)
@@ -3464,18 +3911,18 @@ def main(argv=None) -> int:
     errs["sim_rounds"] = sim["max_abs_err"]
     torch.cuda.empty_cache()
 
-    log("[6/10] the gateway over full-width llama-2-7b (int8 KV cache) "
+    log("[6/11] the gateway over full-width llama-2-7b (int8 KV cache) "
         "through serve_gateway, policies rl (restored) and mixing")
     gw_launches, gateway, llama = gateway_phase(torch, np, mods, ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[7/10] the gateway over full-width falcon-mamba-7b through "
+    log("[7/11] the gateway over full-width falcon-mamba-7b through "
         "serve_gateway, policy rl (restored)")
     mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods,
                                                         ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[8/10] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
+    log("[8/11] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
         "calibrated on the card, sim-vs-engine fidelity on both profiles, "
         "the saturating stream")
     loop_launches, loop = loop_phase(torch, mods, qwen, llama, served,
@@ -3483,20 +3930,27 @@ def main(argv=None) -> int:
     del qwen, llama
     release(torch)
 
-    log("[9/10] the MoE and MLA families behind the gateway at full width "
+    log("[9/11] the MoE and MLA families behind the gateway at full width "
         "(deepseek-moe-16b, minicpm3-4b; rl restored), every family "
         "model-level at full width")
     fam_launches, families = families_phase(torch, np, mods, ckpt_dir)
 
-    log("[10/10] LM training on the card: reduced families against the "
+    log("[10/11] LM training on the card: reduced families against the "
         "CPU, full-width qwen3-0.6b through launch.train (30 steps, "
         "resumed at 20), full-width falcon-mamba-7b under Adafactor")
     train_launches, training = train_phase(torch, np, mods)
+    release(torch)
+
+    log("[11/11] the mesh paths on 4 ranks over gloo on the one card: "
+        "moe_ep at deepseek-moe-16b's MoE width, pipeline_apply over 4 "
+        "qwen3-0.6b layers, the int8 all-reduce of qwen3-0.6b's gradient")
+    mesh_launches, mesh = mesh_phase(torch)
     # each path's own counts (reset before it, read after it): phase 5's
     # serve_engine, phase 5b's router path, phase 5c's three parts, phase
     # 5d's four jax and hybrid pool runs, phase 6's gateway under each policy, phase 7's, phase 8's two sweeps and
-    # three fidelity runs, phase 9's gateway runs, MoE check and five
-    # decode checks, phase 10's three training parts
+    # three fidelity runs, phase 9's gateway runs, MoE check, five
+    # decode checks and moe_ep run, phase 10's three training parts, and
+    # phase 11's pipeline and compressed gradient (summed over its ranks)
     by_path = {"serve_engine": launches,
                "router": router_launches,
                "batched": scale_launches["batched"],
@@ -3506,7 +3960,8 @@ def main(argv=None) -> int:
                "gateway_rl": gw_launches["rl"],
                "gateway_mixing": gw_launches["mixing"],
                "gateway_mamba_rl": mamba_launches["rl"],
-               **loop_launches, **fam_launches, **train_launches}
+               **loop_launches, **fam_launches, **train_launches,
+               **mesh_launches}
     log(f"  launches per path: {by_path}")
 
     kernels = []
@@ -3550,7 +4005,7 @@ def main(argv=None) -> int:
                                "gateway": gateway,
                                "gateway_mamba": mamba_gateway,
                                "loop": loop, "families": families,
-                               "training": training})
+                               "training": training, "mesh": mesh})
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -17,24 +17,92 @@ updates the moments and sums the squared update over the slices, the
 second recomputes each slice's update and applies it clipped.  The math
 is the reference's; the temporaries are one slice.
 
-The reference's shape stand-ins for the dry-run (``input_specs``,
-``cache_specs``, ``param_specs``, ``opt_specs``,
-``adafactor_init_abstract``) belong to ``launch/dryrun.py``, which the
-port does not have yet (ROADMAP §2 item 6).
+The dry-run's shape stand-ins (``input_specs``, ``cache_specs``,
+``param_specs``, ``opt_specs``, ``adafactor_init_abstract``) are tensors
+on the ``meta`` device: the reference's shapes and dtypes, nothing
+allocated.  The shape kinds map to the step each feeds:
+
+  train    -> train_step(params, opt_state, batch)
+  prefill  -> prefill_step(params, batch)       (builds the KV cache)
+  decode   -> serve_step(params, cache, batch)  (one token vs a full cache)
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
 from repro_torch.common.config import ModelConfig, ShapeConfig
 from repro_torch.models import model as model_lib
-from repro_torch.models.params import leaves, tree_map
+from repro_torch.models import params as params_lib
+from repro_torch.models.params import leaves, torch_dtype, tree_map
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.train_loop import (loss_and_grads,
                                              make_train_step,
                                              symmetrize_ep_grads)
+
+
+# -- shape stand-ins (meta tensors) ------------------------------------------
+
+def _struct(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """The step's data inputs: tokens (or embeds), labels for training,
+    vision inputs where the model has cross layers; decode takes one
+    token a row."""
+    b, s = shape.global_batch, shape.seq_len
+    act = torch_dtype(cfg.dtype)
+    batch = {}
+    if shape.kind == "decode":
+        if cfg.input_mode == "tokens":
+            batch["tokens"] = _struct((b,), torch.int32)
+        else:
+            batch["embeds"] = _struct((b, 1, cfg.d_model), act)
+        return batch
+    if cfg.input_mode == "tokens":
+        batch["tokens"] = _struct((b, s), torch.int32)
+    else:
+        batch["embeds"] = _struct((b, s, cfg.d_model), act)
+    if shape.kind == "train":
+        batch["labels"] = _struct((b, s), torch.int32)
+    if cfg.vision_tokens:
+        batch["vision"] = _struct((b, cfg.vision_tokens, cfg.vision_dim),
+                                  act)
+    return batch
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """The decode cache of the shape's batch and length, as ``init_cache``
+    lays it out under the current parallel context (expanded KV heads
+    under a model axis that divides H but not KV)."""
+    return model_lib.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                device="meta")
+
+
+def param_specs(cfg: ModelConfig, data_shards: int) -> Dict:
+    return params_lib.abstract_params(cfg, data_shards)
+
+
+def opt_specs(cfg: ModelConfig, data_shards: int,
+              optimizer: str = "adamw") -> Dict:
+    """The optimizer state: AdamW's f32 moments and int32 step, or
+    Adafactor's factored moments."""
+    p = param_specs(cfg, data_shards)
+    if optimizer == "adafactor":
+        return adafactor_init_abstract(p)
+
+    def f32(x):
+        return _struct(x.shape, torch.float32)
+    return {"mu": tree_map(f32, p), "nu": tree_map(f32, p),
+            "step": _struct((), torch.int32)}
+
+
+def adafactor_init_abstract(params) -> Dict:
+    """Adafactor's state for a tree of (meta) parameters, on their
+    device."""
+    return adafactor_init(params)
 
 
 # -- Adafactor -----------------------------------------------------------------

@@ -49,6 +49,22 @@ def project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def _expand_kv_for_tp(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """When the parallel context's model axis divides H but not the KV
+    heads, K/V [B,S,KV,hd] broadcast to the full H heads (each KV head
+    repeated H / KV times), the layout ``models.model.cache_kv_heads``
+    gives the cache (the reference's, ``attention.py:112-125``).  The
+    kernels take grouped heads, so attention itself runs on the
+    unexpanded K/V; the port expands only what a cache stores."""
+    from repro_torch.distributed import context as dist_ctx
+    tp = dist_ctx.tp_size()
+    kvh = k.shape[2]
+    if tp == 1 or kvh % tp == 0 or cfg.n_heads % tp != 0:
+        return k, v
+    g = cfg.n_heads // kvh
+    return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+
+
 def _out_proj(out: torch.Tensor, p: Dict) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
@@ -76,6 +92,8 @@ def self_attention_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     prefill cache holds).  Returns the attention output [B,S,d]."""
     q, k, v = project_qkv(p, cfg, x, positions)
     out = fa_ops.flash_attention(q, k, v, causal=True, q_offset=0)
+    if cache_entry["k"].shape[2] != k.shape[2]:     # expanded layout
+        k, v = _expand_kv_for_tp(cfg, k, v)
     b, s = k.shape[0], k.shape[1]
     rows = slice(slot, slot + b)
     if cfg.kv_cache_dtype == "int8":
@@ -124,6 +142,8 @@ def self_attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     to bf16 before attention instead, ``attention.py:233-240``, so the
     two may differ in the last bf16 bit of a cached value.)"""
     q, k_new, v_new = project_qkv(p, cfg, x, position[:, None])
+    if cache_entry["k"].shape[2] != k_new.shape[2]:  # expanded layout
+        k_new, v_new = _expand_kv_for_tp(cfg, k_new, v_new)
     kv_len = (position + 1).to(torch.int32)
     if cfg.kv_cache_dtype == "int8":
         for name, t in (("k", k_new), ("v", v_new)):

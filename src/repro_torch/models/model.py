@@ -64,12 +64,26 @@ def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"]
 
 
+def cache_kv_heads(cfg: ModelConfig) -> int:
+    """KV-head count as stored in the decode cache (the reference's,
+    ``model.py:38-48``).  When KV does not divide the parallel context's
+    model axis but H does, the cache stores the EXPANDED heads (full H,
+    each KV head repeated H / KV times): sharded over "model", a rank's
+    slice is smaller than a replicated cache, and no per-step gather of
+    the whole cache is needed.  Without a model axis, KV."""
+    from repro_torch.distributed import context as dist_ctx
+    tp = dist_ctx.tp_size()
+    if tp > 1 and cfg.n_kv_heads % tp != 0 and cfg.n_heads % tp == 0:
+        return cfg.n_heads
+    return cfg.n_kv_heads
+
+
 def _empty_entry(cfg: ModelConfig, kind: str, lead: tuple, batch: int,
                  cache_len: int, dev) -> Dict[str, torch.Tensor]:
     """One layer kind's zero cache (int8 caches: zero values, unit
     scales); ``lead`` is ``(n_periods,)`` or ``()``."""
     dtype = torch_dtype(cfg.dtype)
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    kv, hd = cache_kv_heads(cfg), cfg.head_dim
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(lead + (batch,) + shape, dtype=dt, device=dev)
@@ -146,8 +160,11 @@ def _cross(p: Dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
                              f"vision inputs at {mode}")
         vis_kv = attn.vision_kv(p["attn"], cfg, vis)
         if mode == "prefill":
-            for name, t in vis_kv.items():
-                entry[name][slot:slot + h.shape[0]] = t
+            k, v = vis_kv["k"], vis_kv["v"]
+            if entry["k"].shape[2] != k.shape[2]:   # expanded layout
+                k, v = attn._expand_kv_for_tp(cfg, k, v)
+            entry["k"][slot:slot + h.shape[0]] = k
+            entry["v"][slot:slot + h.shape[0]] = v
     return attn.cross_attention(p["attn"], cfg, h, vis_kv)
 
 

@@ -1,34 +1,47 @@
 """Mixture-of-Experts layer: routed top-k experts plus optional shared
 experts (PyTorch twin of ``repro.models.moe``).
 
-Three interchangeable implementations, each returning ``(y, aux)`` as the
-reference's do:
+Four implementations, each returning ``(y, aux)`` as the reference's do:
 
   dense   -- every expert on every token, gate-combined over all E (the
              oracle).
   ragged  -- (token, expert) pairs sorted by expert, one ``torch.matmul``
-             per non-empty group: the plain counterpart of
+             chain per non-empty group: the plain counterpart of
              ``jax.lax.ragged_dot``.  The group sizes are read to the host
              once per call.
   gather  -- the tiny-batch path: every expert on the call's few rows,
              then each token takes and combines its top-k outputs (no
              weight copies, no host sync).
+  ep      -- expert parallelism over the parallel context's mesh
+             (:func:`moe_ep`): capacity-bounded all-to-all dispatch and
+             combine over the EP process group, the local experts on the
+             ``ragged`` grouped path, and the TP split of ``f`` reduced
+             with one all-reduce over the model group a layer.
 
-The reference's expert-parallel ``moe_ep`` (``shard_map`` over a mesh) is
-not ported: the port has no mesh, so ``impl="ep"`` runs ``ragged``, as the
-reference does without one.  Routing is the reference's: f32 logits from
-an f32 router, softmax before top-k, weights renormalised by
-``max(sum, 1e-9)``, and ties broken to the lower expert index, as
-``jax.lax.top_k`` breaks them.
+``moe_layer`` dispatches as the reference does: ``ep`` runs ``moe_ep``
+under a context with a mesh and ``ragged`` without one.  Expert storage
+may hold R replicas of each expert (``params._expert_storage``); the
+non-EP paths read one copy of each (:func:`_unique_experts`).  Routing is
+the reference's: f32 logits from an f32 router, softmax before top-k,
+weights renormalised by ``max(sum, 1e-9)``, and ties broken to the lower
+expert index, as ``jax.lax.top_k`` breaks them.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import context as dist_ctx
 from repro_torch.models import ops
+
+#: ``moe_ep`` calls since the last reset, and the (token, expert) pairs
+#: they dropped past capacity
+ep_calls = 0
+ep_dropped = 0
 
 
 def _router(p: Dict, x: torch.Tensor, cfg: ModelConfig):
@@ -54,6 +67,14 @@ def aux_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
     return n_experts * torch.sum(f * p_mean) / topk_idx.shape[1]
 
 
+def _unique_experts(p: Dict, cfg: ModelConfig) -> Dict:
+    """The routed weights with EP replication stripped (one copy of each
+    expert, ``w[::R]``), for the non-EP paths."""
+    e = cfg.moe.n_experts
+    return {k: w if w.shape[0] == e else w[::w.shape[0] // e]
+            for k, w in p.items()}
+
+
 def _all_experts(p: Dict, cfg: ModelConfig,
                  x: torch.Tensor) -> torch.Tensor:
     """Every expert on every row: x [T,d] -> [E,T,d], one batched matmul
@@ -71,7 +92,8 @@ def _all_experts(p: Dict, cfg: ModelConfig,
 
 def moe_dense(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     probs, topk_idx, topk_w = _router(p, x_flat, cfg)
-    y_all = _all_experts(p["routed"], cfg, x_flat)           # [E,T,d]
+    y_all = _all_experts(_unique_experts(p["routed"], cfg), cfg,
+                         x_flat)                             # [E,T,d]
     comb = torch.zeros(probs.shape, dtype=torch.float32,
                        device=x_flat.device)
     comb.scatter_(1, topk_idx, topk_w)
@@ -91,6 +113,18 @@ def _expert_ffn(p: Dict, cfg: ModelConfig, e: int,
     return h @ p["w_down"][e]
 
 
+def _grouped_ffn(p: Dict, cfg: ModelConfig, x_sorted: torch.Tensor,
+                 sizes) -> torch.Tensor:
+    """Rows grouped by expert (``sizes[e]`` rows of expert e, in order)
+    through their experts: x_sorted [sum(sizes), d] -> [sum(sizes), d]."""
+    outs, start = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            outs.append(_expert_ffn(p, cfg, e, x_sorted[start:start + n]))
+            start += n
+    return torch.cat(outs) if outs else x_sorted[:0]
+
+
 def moe_ragged(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     """Sort by expert, one matmul chain per non-empty group (exact
     FLOPs).  The weighted combine casts ``topk_w`` to the experts'
@@ -104,18 +138,134 @@ def moe_ragged(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
         // m.top_k
     x_sorted = x_flat[token_of_pair[order]]
     sizes = torch.bincount(flat_expert, minlength=m.n_experts).tolist()
-    outs, start = [], 0
-    for e, n in enumerate(sizes):
-        if n:
-            outs.append(_expert_ffn(p["routed"], cfg, e,
-                                    x_sorted[start:start + n]))
-            start += n
-    y_sorted = torch.cat(outs)
+    y_sorted = _grouped_ffn(_unique_experts(p["routed"], cfg), cfg,
+                            x_sorted, sizes)
     y_pairs = torch.empty_like(y_sorted)
     y_pairs[order] = y_sorted                                # unsort
-    y_pairs = y_pairs.reshape(t, m.top_k, -1)
+    return _combine(y_pairs.reshape(t, m.top_k, -1), topk_w,
+                    x_flat.dtype), aux_loss(probs, topk_idx, m.n_experts)
+
+
+def _combine(y_pairs: torch.Tensor, topk_w: torch.Tensor, dtype):
+    """Each token's k expert outputs [T,k,d] weighted and summed."""
     y = torch.sum(y_pairs * topk_w[..., None].to(y_pairs.dtype), dim=1)
-    return y.to(x_flat.dtype), aux_loss(probs, topk_idx, m.n_experts)
+    return y.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel path (all-to-all over the EP process group)
+# ---------------------------------------------------------------------------
+
+def _local_weight(w: torch.Tensor, spec, axes, coords) -> torch.Tensor:
+    """This rank's block of a routed weight: a DTensor's local tensor
+    (placed as ``spec`` says), or the block of a full tensor (``axes``:
+    the mesh's (names, sizes); ``coords``: this rank's coordinates).
+    A DTensor is told by its ``placements``, so that the path with full
+    tensors never imports ``torch.distributed.tensor``."""
+    from repro_torch.distributed.sharding import local_shard, placements
+    if getattr(w, "placements", None) is not None:      # a DTensor
+        if tuple(w.placements) != tuple(placements(spec, axes)):
+            raise ValueError(f"expert weight placed {w.placements}, not as "
+                             f"{spec}")
+        return w.to_local()
+    return local_shard(w, spec, axes, coords)
+
+
+def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
+    """Expert-parallel MoE over the parallel context's ``DeviceMesh``
+    (the reference's ``moe_ep`` and its ``shard_map`` body ``_ep_local``,
+    ``moe.py:129-231``), forward only.
+
+    ``x_flat`` [T, d] is this rank's tokens: its shard of the batch over
+    ``ctx.batch_axes``, the same on every rank of its model-axis group.
+    The routed weights are the full stored experts ``[E_store, d, f]``
+    (every rank takes its block: experts over ``ctx.ep_axes``, f over the
+    model axis) or DTensors placed so.  Each (token, expert) pair goes to
+    the shard that stores its expert (spread over an expert's R replicas
+    by token), at most ``capacity`` pairs a destination (later pairs are
+    dropped and contribute nothing); one all-to-all over the EP group
+    dispatches, the shard's experts run on the ``ragged`` grouped path
+    over the rows it received (empty capacity slots carry no expert and
+    are skipped), one all-reduce over the model group sums the TP split
+    of f, a second all-to-all returns the rows, and each token combines
+    its k results.  The aux loss is the mean over the batch axes of each
+    shard's.  Returns (y [T, d], aux); counts the call and its dropped
+    pairs (``ep_calls``, ``ep_dropped``)."""
+    global ep_calls, ep_dropped
+    from repro_torch.launch.mesh import axis_sizes, mesh_coords
+    ctx = dist_ctx.get()
+    mesh = ctx.mesh
+    if mesh is None:
+        raise ValueError("EP MoE requires a parallel context mesh")
+    if not hasattr(mesh, "get_group"):
+        raise TypeError("moe_ep runs on a DeviceMesh (its process groups), "
+                        f"not on {type(mesh).__name__}")
+    routed = p["routed"]
+    if torch.is_grad_enabled() and (x_flat.requires_grad or any(
+            w.requires_grad for w in routed.values())):
+        raise NotImplementedError("moe_ep runs forward only; train "
+                                  "without a parallel context")
+    m = cfg.moe
+    e, k = m.n_experts, m.top_k
+    ep_axes = tuple(ctx.ep_axes) or ("data",)
+    batch_axes = tuple(ctx.batch_axes) or ep_axes
+    sizes = axis_sizes(mesh)
+    n_shards = math.prod(sizes[a] for a in ep_axes)
+    e_store = routed["w_up"].shape[0]
+    if e_store % n_shards:
+        raise ValueError(f"{e_store} stored experts do not divide over "
+                         f"{n_shards} EP shards")
+    tp = (ctx.model_axis,) if ctx.model_axis else None
+    axes, coords = (tuple(sizes), tuple(sizes.values())), mesh_coords(mesh)
+    local = {name: _local_weight(w, (ep_axes, tp, None) if name == "w_down"
+                                 else (ep_axes, None, tp), axes, coords)
+             for name, w in routed.items()}
+    r = max(1, n_shards // e)               # replication factor
+    e_loc = max(1, e // n_shards)           # experts a shard
+    t_loc, d = x_flat.shape
+    dev = x_flat.device
+
+    probs, topk_idx, topk_w = _router(p, x_flat, cfg)
+    pair_token = torch.arange(t_loc * k, device=dev) // k
+    pair_expert = topk_idx.reshape(-1)
+    # destination shard: an expert's R replicas take its tokens in turn
+    dest = pair_expert * r + pair_token % r if r > 1 \
+        else pair_expert // e_loc
+    cap = int(-(-t_loc * k // n_shards) * m.capacity_factor)
+    cap = max(8, -(-cap // 8) * 8)
+    onehot = (dest[:, None] == torch.arange(n_shards, device=dev)).long()
+    pos = (torch.cumsum(onehot, 0) - onehot).gather(1, dest[:, None])[:, 0]
+    keep = pos < cap
+    # send buffers; a dropped pair lands in a dump row past the end
+    slot = torch.where(keep, dest * cap + pos, n_shards * cap)
+    send_x = x_flat.new_zeros((n_shards * cap + 1, d))
+    send_x[slot] = x_flat[pair_token]
+    # a slot's local expert; e_loc marks an empty slot
+    send_eid = torch.full((n_shards * cap + 1,), e_loc, dtype=torch.int64,
+                          device=dev)
+    send_eid[slot] = pair_expert % e_loc
+    ep_group = coll.axis_group(mesh, ep_axes)
+    rx = coll.all_to_all(send_x[:-1], ep_group)
+    reid = coll.all_to_all(send_eid[:-1], ep_group)
+    order = torch.argsort(reid, stable=True)
+    stats = torch.cat([torch.bincount(reid, minlength=e_loc + 1)[:e_loc],
+                       (~keep).sum().view(1)]).tolist()
+    group_sizes, dropped = stats[:-1], stats[-1]
+    rows = order[:sum(group_sizes)]
+    y_rows = _grouped_ffn(local, cfg, rx[rows], group_sizes)
+    if tp is not None:
+        coll.all_reduce(y_rows, "sum", coll.axis_group(mesh, tp))
+    y_recv = torch.zeros_like(rx)
+    y_recv[rows] = y_rows
+    y_back = coll.all_to_all(y_recv, ep_group)
+    y_pairs = torch.where(keep[:, None],
+                          y_back[torch.where(keep, slot, 0)], 0)
+    y = _combine(y_pairs.reshape(t_loc, k, d), topk_w, x_flat.dtype)
+    batch_group = coll.axis_group(mesh, batch_axes)
+    aux = coll.all_reduce(aux_loss(probs, topk_idx, e), "sum", batch_group)
+    ep_calls += 1
+    ep_dropped += dropped
+    return y, aux / torch.distributed.get_world_size(batch_group)
 
 
 def moe_gather(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
@@ -129,13 +279,15 @@ def moe_gather(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     deepseek-moe-16b's 8-row decode the copies alone cost several times
     this path)."""
     probs, topk_idx, topk_w = _router(p, x_flat, cfg)
-    y_all = _all_experts(p["routed"], cfg, x_flat)           # [E,T,d]
+    y_all = _all_experts(_unique_experts(p["routed"], cfg), cfg,
+                         x_flat)                             # [E,T,d]
     rows = torch.arange(x_flat.shape[0], device=x_flat.device)
     y = y_all[topk_idx, rows[:, None]]                       # [T,k,d]
-    y = torch.sum(y * topk_w[..., None].to(y.dtype), dim=1)
-    return y.to(x_flat.dtype), aux_loss(probs, topk_idx, cfg.moe.n_experts)
+    return _combine(y, topk_w, x_flat.dtype), aux_loss(
+        probs, topk_idx, cfg.moe.n_experts)
 
 
+#: the single-device implementations
 IMPLS = {"dense": moe_dense, "ragged": moe_ragged, "gather": moe_gather}
 
 
@@ -143,19 +295,36 @@ def moe_layer(p: Dict, cfg: ModelConfig,
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full MoE block.  x [B,S,d] -> (y [B,S,d], aux_loss scalar).
 
-    The reference's dispatch without a mesh: ``ep`` runs ``ragged``, and
-    a call of 8 tokens or fewer runs ``gather`` (the engine's gang decode
-    of 8 slots); ``dense`` only where the config asks for it."""
+    The reference's dispatch (``moe.py:259-291``): ``ep`` runs
+    :func:`moe_ep` under a parallel context with a mesh, ``gather`` where
+    the tokens do not divide over the batch shards or are fewer than
+    they, and ``ragged`` without a mesh; any other impl on 8 tokens or
+    fewer runs ``gather`` (the engine's gang decode of 8 slots)."""
+    from repro_torch.launch.mesh import axis_sizes
     from repro_torch.models.model import ffn_forward
     m = cfg.moe
     shape = x.shape
     x_flat = x.reshape(-1, shape[-1])
-    impl = "ragged" if m.impl == "ep" else m.impl
-    if x_flat.shape[0] <= 8:
+    t = x_flat.shape[0]
+    impl = m.impl
+    if impl == "ep":
+        ctx = dist_ctx.get()
+        if ctx.mesh is None:
+            impl = "ragged"
+        else:
+            sizes = axis_sizes(ctx.mesh)
+            shards = math.prod(sizes[a] for a in (ctx.batch_axes
+                                                  or ctx.ep_axes))
+            if t % shards != 0 or t < shards:
+                impl = "gather"     # e.g. single-token long-context decode
+    if t <= 8 and impl != "ep":
         impl = "gather"
-    if impl not in IMPLS:
+    if impl == "ep":
+        y, aux = moe_ep(p, cfg, x_flat)
+    elif impl in IMPLS:
+        y, aux = IMPLS[impl](p, cfg, x_flat)
+    else:
         raise ValueError(impl)
-    y, aux = IMPLS[impl](p, cfg, x_flat)
     if m.n_shared:
         y = y + ffn_forward(p["shared"], cfg, x_flat)
     return y.reshape(shape), aux

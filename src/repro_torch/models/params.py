@@ -87,20 +87,44 @@ def _init_ffn(gen, cfg, lead, dtype, device, d_ff=None) -> Dict[str, Any]:
     return p
 
 
-def _init_moe(gen, cfg, lead, dtype, device) -> Dict[str, Any]:
-    """The reference's ``init_moe`` (``params.py:54-72``) without expert
-    parallelism's replicas: routed experts stacked ``[E, d, f_e]`` /
-    ``[E, f_e, d]``, an f32 router ``[d, E]``, and the shared experts as
-    one dense FFN of width ``n_shared * d_expert``."""
+def _expert_storage(cfg: ModelConfig, data_shards: int) -> int:
+    """Physical leading dim of the routed experts' weights (the
+    reference's ``_expert_storage``, ``params.py:28-41``).
+
+    For the expert-parallel path each of the ``data_shards`` ranks owns
+    one slot; experts are replicated ``R = shards // E`` times when
+    E < shards (slot s holds expert s // R; training symmetrizes the
+    replicas' gradients).  For the other impls, or without shards, E."""
+    e = cfg.moe.n_experts
+    if cfg.moe.impl == "ep" and data_shards > 0:
+        if e < data_shards:
+            if data_shards % e:
+                raise ValueError(f"{e} experts do not divide "
+                                 f"{data_shards} shards")
+            return data_shards
+        if e % data_shards:
+            raise ValueError(f"{data_shards} shards do not divide {e} "
+                             "experts")
+    return e
+
+
+def _init_moe(gen, cfg, lead, dtype, device, data_shards) -> Dict[str, Any]:
+    """The reference's ``init_moe`` (``params.py:54-72``): routed experts
+    stacked ``[E_store, d, f_e]`` / ``[E_store, f_e, d]``, an f32 router
+    ``[d, E]``, and the shared experts as one dense FFN of width
+    ``n_shared * d_expert``.  With E_store = R * E (:func:`_expert_storage`)
+    slot s holds a copy of expert s // R.  (The reference draws every slot
+    on its own, so its replicas of one expert differ from the start.)"""
     d, m = cfg.d_model, cfg.moe
     e, fe = m.n_experts, m.d_expert
-    routed = {"w_up": _dense(gen, lead + (e, d, fe), dtype, device,
-                             fan_in=d),
-              "w_down": _dense(gen, lead + (e, fe, d), dtype, device,
-                               fan_in=fe)}
+    r = _expert_storage(cfg, data_shards) // e
+
+    def experts(shape, fan_in):
+        w = _dense(gen, lead + (e,) + shape, dtype, device, fan_in=fan_in)
+        return w.repeat_interleave(r, dim=len(lead)) if r > 1 else w
+    routed = {"w_up": experts((d, fe), d), "w_down": experts((fe, d), fe)}
     if cfg.gated_mlp:
-        routed["w_gate"] = _dense(gen, lead + (e, d, fe), dtype, device,
-                                  fan_in=d)
+        routed["w_gate"] = experts((d, fe), d)
     p = {"router": _dense(gen, lead + (d, e), torch.float32, device,
                           fan_in=d),
          "routed": routed}
@@ -132,7 +156,8 @@ def _init_mamba(gen, cfg, lead, dtype, device) -> Dict[str, Any]:
     }
 
 
-def _init_layer(gen, cfg, pos, lead, dtype, device) -> Dict[str, Any]:
+def _init_layer(gen, cfg, pos, lead, dtype, device,
+                data_shards) -> Dict[str, Any]:
     """One layer kind (the reference's ``init_layer``,
     ``params.py:123-149``): attention (GQA or MLA), cross-attention with
     its two scalar gates (zero, as in the reference), or mamba; then a
@@ -152,17 +177,20 @@ def _init_layer(gen, cfg, pos, lead, dtype, device) -> Dict[str, Any]:
     if is_moe or cfg.d_ff > 0:
         layer["ln2"] = _zeros(lead, (cfg.d_model,), dtype, device)
         if is_moe:
-            layer["moe"] = _init_moe(gen, cfg, lead, dtype, device)
+            layer["moe"] = _init_moe(gen, cfg, lead, dtype, device,
+                                     data_shards)
         else:
             layer["ffn"] = _init_ffn(gen, cfg, lead, dtype, device)
     return layer
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", data_shards: int = 0) -> Dict[str, Any]:
     """Initialize the full parameter tree on ``device`` (default: the
     card; raises without one unless ``device='cpu'``).  The generator
-    must live on the same device type.  The tree has the reference's
+    must live on the same device type.  ``data_shards``, the size of the
+    expert-parallel axis, sizes the routed experts' storage when the MoE
+    impl is "ep" (:func:`_expert_storage`).  The tree has the reference's
     keys: ``embed`` for token inputs only, ``vision_proj
     [vision_dim, d]`` with vision inputs, ``first_layer`` (no
     ``n_periods`` axis) for a dense first layer, and ``lm_head`` when
@@ -186,13 +214,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "ffn": _init_ffn(generator, cfg, (), dtype, dev,
                              d_ff=cfg.dense_first_d_ff or cfg.d_ff)}
     params["layers"] = [
-        _init_layer(generator, cfg, pos, (cfg.n_periods,), dtype, dev)
+        _init_layer(generator, cfg, pos, (cfg.n_periods,), dtype, dev,
+                    data_shards)
         for pos in range(cfg.period)]
     params["final_norm"] = _zeros((), (d,), dtype, dev)
     if not cfg.tie_embeddings or cfg.input_mode != "tokens":
         params["lm_head"] = _dense(generator, (d, cfg.vocab_size), dtype,
                                    dev)
     return params
+
+
+def abstract_params(cfg: ModelConfig, data_shards: int = 0):
+    """The parameter tree on the ``meta`` device: every leaf's shape and
+    dtype, nothing allocated (the dry-run's stand-in)."""
+    return init_params(cfg, None, device="meta", data_shards=data_shards)
 
 
 def _to_tensor(x, device) -> torch.Tensor:
@@ -208,7 +243,8 @@ def from_reference(tree, device="cuda"):
     """Carry a parameter (or cache) tree of the JAX package into the port
     by value: nested dicts/lists of array-likes (e.g. the result of
     ``jax.tree.map(np.asarray, params)``) -> the same nesting of tensors
-    on ``device``."""
+    on ``device``, whatever their shapes (replicated expert storage
+    included)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: from_reference(v, dev) for k, v in tree.items()}
@@ -299,6 +335,20 @@ def leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
     return [] if tree is None else [tree]
+
+
+def tree_unflatten(tree, flat):
+    """A tree shaped like ``tree`` whose leaves, in :func:`leaves` order,
+    are ``flat``'s items."""
+    it = iter(flat)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(fill(v) for v in node)
+        return None if node is None else next(it)
+    return fill(tree)
 
 
 def tree_map(fn, tree):

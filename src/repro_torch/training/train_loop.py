@@ -27,10 +27,9 @@ def symmetrize_ep_grads(cfg: ModelConfig, grads):
     """Average gradients across EP replica slots (the reference's rule).
 
     When E < n_ep_shards, routed expert weights are stored replicated
-    (slot s holds expert s // R); the replicas receive different
-    gradients and are re-synchronized.  The port stores no replicas, so
-    on its configs this is the identity; it acts on trees that hold
-    them."""
+    (``init_params(..., data_shards)``: slot s holds expert s // R); the
+    replicas receive different gradients and are re-synchronized.  A tree
+    without replicas passes through unchanged."""
     if cfg.moe is None or cfg.moe.impl != "ep":
         return grads
     e = cfg.moe.n_experts
