@@ -236,7 +236,22 @@ any failure raises and the process exits non-zero:
      from a [1, 256] batch a rank, each leaf within 5% of its max |g| of
      the f32 all-reduced mean, the collective bytes printed.  Each part's
      wall and host copies are printed for every rank; a failing rank
-     fails the phase.
+     fails the phase;
+  12. the dry-run (``repro_torch.launch.dryrun``, every tensor on the
+     meta device, H100 datasheet constants): (a) its CLI over every
+     ``ASSIGNED`` arch x shape on the single-pod mesh (16, 16) with full
+     analysis and on the multi-pod mesh (2, 16, 16) for argument and
+     peak bytes, the cells in parallel processes, artifacts under
+     ``build/dryrun_torch_smoke/``, a line a cell and the count of cells
+     whose peak exceeds 80 GB; (b) phase 10b's cell on a (1, 1) mesh
+     (qwen3-0.6b, bf16, remat, AdamW, 8 x 1024): its parameter and
+     optimizer bytes equal to the real train state's on the card, the
+     batch's beside the card's (int64 there), its peak within 25% of
+     10b's first run's ``max_memory_allocated``, and its compute and
+     memory terms printed as shares of 10b's device-busy ms a step; (c)
+     one llama-2-7b int8 decode step at phase 6's engine shape (8 slots
+     x 2048, every position counted) on (1, 1), printed beside phase 6's
+     device-busy ms a step.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -366,9 +381,6 @@ SCAN_BWD_CASES = ((2, 40, 300, 16, ("bfloat16", "float32", "bfloat16",
                   (1, 33, 65, 8, ("bfloat16", "bfloat16", "bfloat16",
                                   "float32")),
                   (2, 17, 513, 16, ("float32",) * 4))
-# the scan backward's bound counts the forward's saved states one every
-# this many steps, whatever interval the kernel saves them at
-BOUND_STATE_CHUNK = 64
 # the scan's plain versions are Python loops over the steps (0.1-0.5 s a
 # call at falcon-mamba-7b's width): timed over fewer runs
 PLAIN_SCAN_RUNS = 5
@@ -697,14 +709,7 @@ def time_backwards(torch, fa, ms):
     lib, lib_dev = timed(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), dol, retain_graph=True))
     del lib_out
-    pairs = s * (s + 1) // 2
-    # S and dP recomputed, dV, dQ, dK: five products of 2 hd FLOPs a
-    # (q, k) pair; q, k, v, o, do read, dq, dk, dv written (bf16), lse
-    # read (f32)
-    b_ms, b_by = bound(5 * 2 * hd * h * pairs * b,
-                       2 * (3 * b * s * h * hd + 2 * b * s * kvh * hd)
-                       + 2 * (b * s * h * hd + 2 * b * s * kvh * hd)
-                       + 4 * b * h * s)
+    b_ms, b_by = bound(*fa.cost_bwd(b, s, h, kvh, hd)[:2])
     out["flash_attention_bwd"] = dict(
         ms=ms_, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
         library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
@@ -720,20 +725,13 @@ def time_backwards(torch, fa, ms):
     ms_, dev_ms = timed(lambda: ms.mamba_scan_bwd(*args, hc, dy, None))
     plain = time_ms(torch, lambda: ms.mamba_scan_bwd_plain(*args, dy),
                     flush, runs=PLAIN_SCAN_RUNS, warmup=1)
-    # read: bf16 xc, b, c, dy; f32 dt, a_log, d and the saved states;
-    # written: bf16 dxc, db, dc; f32 ddt, da_log, dd.  The states are
-    # counted one every BOUND_STATE_CHUNK steps: that the kernel saves
-    # them at a finer interval (ms.STATE_CHUNK) is its own cost, not the
-    # function's
-    n_states = b * -(-s // BOUND_STATE_CHUNK) * di * ds
-    nbytes = (2 * 2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds
-              + 2 * (4 * di * ds + 4 * di) + 4 * n_states
-              + 2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds)
+    # ms.cost_bwd: the bytes, the saved states counted one every
+    # ms.BOUND_STATE_CHUNK steps, against one exponential a (step,
+    # channel, state) on the special-function units
+    _, nbytes, exps = ms.cost_bwd(b, s, di, ds)
+    n_states = b * -(-s // ms.BOUND_STATE_CHUNK) * di * ds
     t_bytes = nbytes / PEAK_BYTES
-    # the gradient needs exp(dt a) once a (step, channel, state); that
-    # the kernel takes it twice (it recomputes each chunk's states) is
-    # its own cost, not the function's
-    t_sfu = b * s * di * ds / SFU_RATE
+    t_sfu = exps / SFU_RATE
     bound_ms = max(t_bytes, t_sfu) * 1e3
     out["mamba_scan_bwd"] = dict(
         ms=ms_, device_ms=dev_ms, plain_ms=plain, library_ms=None,
@@ -817,9 +815,7 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
         plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
                         flush)
         lib, lib_dev = timed(lambda: sdpa(torch, qt, kt, vt, is_causal=True))
-        pairs = s * (s + 1) // 2                   # causal (q, k) pairs
-        b_ms, b_by = bound(4 * hd * h * pairs, 2 * (2 * s * h * hd
-                                                    + 2 * s * kvh * hd))
+        b_ms, b_by = bound(*fa.cost(1, s, s, h, kvh, hd)[:2])
         return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                     library_device_ms=lib_dev, bound_ms=b_ms,
                     bound_by=b_by, shape=f"B=1 Sq=Skv={s} H={h} KV={kvh} "
@@ -839,9 +835,8 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
     plain = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lens),
                     flush)
     lib, lib_dev = timed(lambda: sdpa(torch, qt, kt, vt, attn_mask=mask))
-    valid = sum(min(max(n, 0), s) for n in kv_lens)
-    b_ms, b_by = bound(4 * hd * h * valid,
-                       2 * (2 * valid * kvh * hd + 2 * b * h * hd) + 4 * b)
+    b_ms, b_by = bound(*da.cost(b, h, kvh, hd,
+                                da.valid_positions(kv_lens, s))[:2])
     # what device_ms holds beside the bytes: the kernel with one cached
     # position a slot (its fixed cost), and one tiny kernel (the method's
     # own floor)
@@ -875,11 +870,8 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
     plain = time_ms(torch, lambda: da.decode_attention_plain(
         q, k, v, lens, ks, vs), flush)
     lib, lib_dev = timed(lambda: sdpa(torch, qt, kt, vt, attn_mask=mask))
-    valid = sum(min(max(n, 0), s) for n in kv_lens_int8)
-    # int8 K and V, bf16 scales of both, bf16 q and out, int32 kv_len
-    b_ms, b_by = bound(4 * hd * h * valid,
-                       2 * valid * kvh * hd + 2 * 2 * valid * kvh
-                       + 2 * 2 * b * h * hd + 4 * b)
+    b_ms, b_by = bound(*da.cost(b, h, kvh, hd, da.valid_positions(
+        kv_lens_int8, s), int8=True)[:2])
     out["decode_attention_int8"] = dict(
         ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
         library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
@@ -893,13 +885,9 @@ def time_kernels(torch, fa, da, scan, quantize_kv, prompt_len: int,
         ms, dev_ms = timed(lambda: scan.mamba_scan(*args))
         plain = time_ms(torch, lambda: scan.mamba_scan_plain(*args), flush,
                         runs=PLAIN_SCAN_RUNS, warmup=1)
-        # bf16 xc, b, c and y; f32 dt, a_log, d and h_final
-        nbytes = (2 * b * s * di + 4 * b * s * di + 2 * 2 * b * s * ds
-                  + 4 * di * ds + 4 * di + 2 * b * s * di + 4 * b * di * ds)
-        # per (step, channel, state): dt*a, exp, the state's multiply-add
-        # (2), dt*x*B, h*C summed (2); per (step, channel): dt*x, D*x + sum
-        b_ms, b_by = bound(b * s * di * (7 * ds + 3), nbytes,
-                           PEAK_F32_FLOPS)
+        # bf16 xc, b, c and y; f32 dt, a_log, d and h_final; f32 FLOPs
+        flops, nbytes, _ = scan.cost(b, s, di, ds)
+        b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
         return dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
                     library_ms=None, library_device_ms=None, bound_ms=b_ms,
                     bound_by=b_by, bytes=nbytes,
@@ -3321,9 +3309,12 @@ def train_qwen3(torch, np, m):
                     cfg, a["steps"], a["batch"], a["seq"], lr=a["lr"],
                     ckpt=ckpt, ckpt_every=a["ckpt_every"], device="cuda",
                     on_step=recorder(rec), log=lambda x: log("  " + x))
+                torch.cuda.synchronize()
                 runs.append(dict(rec=rec, params=params, opt=opt,
                                  start=start, t0=t0,
-                                 wall_s=time.perf_counter() - t0))
+                                 wall_s=time.perf_counter() - t0,
+                                 peak_gb=torch.cuda.max_memory_allocated()
+                                 / 1e9))
     finally:
         torch.use_deterministic_algorithms(False)
     peak_gb = release(torch, "qwen3-0.6b training, two runs")
@@ -3338,6 +3329,10 @@ def train_qwen3(torch, np, m):
     resumed = [r[2] for r in second["rec"]]
     tail = losses[TRAIN_RESUME_AT:]
     state_a = _tree_leaves({"params": first["params"], "opt": first["opt"]})
+    # the train state's bytes on the card (phase 12 (b) holds the
+    # dry-run's argument bytes to them)
+    state_bytes = sum(x.numel() * x.element_size() for x in state_a.values())
+    first_peak_gb = first["peak_gb"]
     state_b = _tree_leaves({"params": second["params"],
                             "opt": second["opt"]})
     if not refused:
@@ -3366,7 +3361,8 @@ def train_qwen3(torch, np, m):
     log(f"  step wall median {step_ms:.1f} ms (first step "
         f"{walls[0]:.1f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, run "
         f"{first['wall_s']:.1f} s with checkpoints; peak allocated "
-        f"{peak_gb:.2f} GB; flash launches a step: forward {fa_fwd:.1f} "
+        f"{peak_gb:.2f} GB (the first run alone {first['peak_gb']:.2f} GB); "
+        f"flash launches a step: forward {fa_fwd:.1f} "
         f"(predicted 56), backward {fa_bwd:.1f} (predicted 28)")
     run_s = first["wall_s"]
     # one step profiled (on the first run's state, after the checks)
@@ -3386,7 +3382,12 @@ def train_qwen3(torch, np, m):
     out = dict(losses=losses, resumed_losses=resumed, resume=how,
                refused_ops=refused, step_wall_ms=step_ms,
                first_step_ms=walls[0], tokens_per_s=tokens / step_ms * 1e3,
-               peak_gb=peak_gb, flash_fwd_per_step=fa_fwd,
+               peak_gb=peak_gb, first_run_peak_gb=first_peak_gb,
+               state_bytes=state_bytes,
+               batch_bytes=sum(x.numel() * x.element_size()
+                               for x in batch.values()),
+               batch_dtypes=sorted({str(x.dtype) for x in batch.values()}),
+               flash_fwd_per_step=fa_fwd,
                flash_bwd_per_step=fa_bwd, run_s=run_s, profile=prof)
     return launches, out
 
@@ -3753,6 +3754,112 @@ def mesh_phase(torch):
     return launches, out
 
 
+# -- phase 12: the dry-run ---------------------------------------------------
+
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_torch_smoke")
+# 12 (b)'s bound on the peak estimate against 10b's first run
+DRYRUN_PEAK_TOL = 0.25
+DEVICE_GB = 80e9
+
+
+def dryrun_phase(training, gateway):
+    """Phase 12: (a) the dry-run's CLI over every cell, (b) phase 10b's
+    cell against 10b's train state and peak, (c) phase 6's decode step
+    beside its busy time."""
+    from repro_torch.common.config import ShapeConfig, shapes_for
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--out", DRYRUN_OUT],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    cells, over = {}, []
+    for mesh in ("single", "multi"):
+        for arch in ASSIGNED:
+            for shape in shapes_for(get_config(arch)):
+                path = os.path.join(DRYRUN_OUT, mesh,
+                                    f"{arch}__{shape.name}.json")
+                with open(path) as f:
+                    r = json.load(f)
+                assert r["argument_bytes_per_device"] > 0, path
+                if mesh == "single":
+                    assert r["flops_per_device"] > 0 \
+                        and r["hbm_bytes_per_device"] > 0, path
+                    log(f"  [{mesh}] {arch} x {shape.name}: peak "
+                        f"{r['peak_bytes_per_device'] / 1e9:.2f} GB, "
+                        f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+                        f"{r['memory_s'] * 1e3:.3f} ms, collective "
+                        f"{r['collective_s'] * 1e3:.3f} ms ({r['dominant']}"
+                        f"), useful {r['useful_flop_ratio']:.2f}")
+                if r["peak_bytes_per_device"] > DEVICE_GB:
+                    over.append(f"{mesh}:{arch}:{shape.name}")
+                cells[f"{mesh}:{arch}:{shape.name}"] = r
+    log(f"  (a) {len(cells)} cells in {cli_s:.1f} s ({os.cpu_count()} "
+        f"cores); "
+        f"{len(over)} with a peak over 80 GB: {', '.join(over) or 'none'}")
+    # (b) phase 10b's cell on (1, 1)
+    one = (("data", "model"), (1, 1))
+    q = training["qwen3"]
+    a = TRAIN_ARGS
+    cell = dryrun.run_cell(
+        "qwen3-0.6b", None, False, os.path.join(DRYRUN_OUT, "check"),
+        verbose=False, cfg=get_config("qwen3-0.6b"),
+        shape=ShapeConfig("train_8x1024", a["seq"], a["batch"], "train"),
+        axes=one)
+    args = dryrun.arguments(get_config("qwen3-0.6b"), ShapeConfig(
+        "train_8x1024", a["seq"], a["batch"], "train"), one)
+    state_est = sum(dryrun.tree_local_bytes(t, sp, one) for t, sp in (
+        (args.params, args.param_specs), (args.opt, args.opt_specs)))
+    batch_est = dryrun.tree_local_bytes(args.batch, args.batch_specs, one)
+    assert cell["argument_bytes_per_device"] == state_est + batch_est
+    assert state_est == q["state_bytes"], (state_est, q["state_bytes"])
+    peak = cell["peak_bytes_per_device"] / 1e9
+    measured = q["first_run_peak_gb"]
+    assert abs(peak - measured) <= DRYRUN_PEAK_TOL * measured, (peak,
+                                                               measured)
+    busy = q["profile"]["device_busy_ms"]
+    log(f"  (b) qwen3-0.6b 8 x 1024 on (1, 1): parameters + optimizer "
+        f"{state_est:,} B = the card's train state {q['state_bytes']:,} B; "
+        f"batch {batch_est:,} B (int32 stand-ins) against the card's "
+        f"{q['batch_bytes']:,} B ({', '.join(q['batch_dtypes'])}); peak "
+        f"estimate {peak:.2f} GB against 10b's first run {measured:.2f} GB "
+        f"({peak / measured - 1:+.1%}; both runs {q['peak_gb']:.2f} GB); "
+        f"compute {cell['compute_s'] * 1e3:.2f} ms and memory "
+        f"{cell['memory_s'] * 1e3:.2f} ms against {busy:.2f} ms busy a "
+        f"step ({cell['compute_s'] * 1e3 / busy:.1%} / "
+        f"{cell['memory_s'] * 1e3 / busy:.1%} of it)")
+    # (c) phase 6's decode step on (1, 1)
+    llama = dataclasses.replace(get_config("llama-2-7b"),
+                                kv_cache_dtype="int8")
+    dec = dryrun.run_cell(
+        "llama-2-7b", None, False, os.path.join(DRYRUN_OUT, "check"),
+        verbose=False, cfg=llama,
+        shape=ShapeConfig("engine_decode", 2048, 8, "decode"), axes=one)
+    busy6 = gateway["rl"]["decode_profile"]["device_busy_ms"]
+    log(f"  (c) llama-2-7b int8 decode, 8 slots x 2048 on (1, 1): "
+        f"compute {dec['compute_s'] * 1e3:.3f} ms, memory "
+        f"{dec['memory_s'] * 1e3:.3f} ms (bound "
+        f"{max(dec['compute_s'], dec['memory_s']) * 1e3:.3f} ms) against "
+        f"phase 6's {busy6:.3f} ms busy a step "
+        f"({max(dec['compute_s'], dec['memory_s']) * 1e3 / busy6:.1%}); "
+        f"peak {dec['peak_bytes_per_device'] / 1e9:.2f} GB")
+    out = dict(cli_s=cli_s, cells=len(cells), over_80gb=over,
+               qwen3_train=dict(cell, measured_first_run_peak_gb=measured,
+                                measured_busy_ms=busy,
+                                card_state_bytes=q["state_bytes"],
+                                card_batch_bytes=q["batch_bytes"]),
+               llama_decode=dict(dec, measured_busy_ms=busy6),
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  dry-run phase {out['phase_s']:.1f} s")
+    return out
+
+
 def timed_build(build):
     """The kernel library's path, built if need be, and the seconds the
     build took."""
@@ -3832,7 +3939,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     gpu = gpu_line()
-    log(f"[1/11] environment: {gpu}; torch {torch.__version__}, CUDA "
+    log(f"[1/12] environment: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     mods = argparse.Namespace(
         get_config=get_config, params_lib=params_lib, profiles=profiles,
@@ -3856,7 +3963,7 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(timed_build, build)
         if not args.kernels_only:
-            log("[5b/11] the router's learning path: predictor and DQN "
+            log("[5b/12] the router's learning path: predictor and DQN "
                 "router trained on the card, checkpointed, serving the "
                 "simulator (while the kernels build)")
             router_launches, router, ckpt_dir = router_phase(torch, np,
@@ -3871,11 +3978,11 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    log("[2/11] kernels against their plain versions on the card")
+    log("[2/12] kernels against their plain versions on the card")
     errs = check_kernels(torch, fa, da, ms, quantize_kv)
     errs.update(check_backwards(torch, fa, ms))
 
-    log("[3/11] timing (CUDA events, median of "
+    log("[3/12] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
     kv_rng = np.random.default_rng(2)
     kv_lens = [int(x) for x in kv_rng.integers(100, 1025, 7)] + [1100]
@@ -3891,19 +3998,19 @@ def main(argv=None) -> int:
                                    "max_abs_err": errs, "times": times})
         return 0
 
-    log("[4/11] reduced models: card (kernels) against CPU (plain)")
+    log("[4/12] reduced models: card (kernels) against CPU (plain)")
     check_reduced_model(torch, get_config, params_lib, model_lib)
 
-    log("[5/11] serve full-width qwen3-0.6b through serve_engine")
+    log("[5/12] serve full-width qwen3-0.6b through serve_engine")
     launches, served, qwen = serve(torch, np, mods)
     torch.cuda.empty_cache()
 
-    log("[5c/11] the router's scale-up on the card: batched training over "
+    log("[5c/12] the router's scale-up on the card: batched training over "
         "py, vec and jax, the heterogeneous stream, online learning under "
         "drift")
     scale_launches, scale_up = scale_up_phase(torch, np, mods)
 
-    log("[5d/11] the device-resident simulator: bench_jaxsim's schedule "
+    log("[5d/12] the device-resident simulator: bench_jaxsim's schedule "
         "through py, vec, jax and the hybrid at 32 and 512 episodes, the "
         "round-loop kernel against its plain version, featurize_jax_many")
     sim = sim_phase(torch, np, mods)
@@ -3911,18 +4018,18 @@ def main(argv=None) -> int:
     errs["sim_rounds"] = sim["max_abs_err"]
     torch.cuda.empty_cache()
 
-    log("[6/11] the gateway over full-width llama-2-7b (int8 KV cache) "
+    log("[6/12] the gateway over full-width llama-2-7b (int8 KV cache) "
         "through serve_gateway, policies rl (restored) and mixing")
     gw_launches, gateway, llama = gateway_phase(torch, np, mods, ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[7/11] the gateway over full-width falcon-mamba-7b through "
+    log("[7/12] the gateway over full-width falcon-mamba-7b through "
         "serve_gateway, policy rl (restored)")
     mamba_launches, mamba_gateway = mamba_gateway_phase(torch, np, mods,
                                                         ckpt_dir)
     torch.cuda.empty_cache()
 
-    log("[8/11] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
+    log("[8/12] the simulator-engine loop: llama-2-7b and qwen3-0.6b "
         "calibrated on the card, sim-vs-engine fidelity on both profiles, "
         "the saturating stream")
     loop_launches, loop = loop_phase(torch, mods, qwen, llama, served,
@@ -3930,21 +4037,26 @@ def main(argv=None) -> int:
     del qwen, llama
     release(torch)
 
-    log("[9/11] the MoE and MLA families behind the gateway at full width "
+    log("[9/12] the MoE and MLA families behind the gateway at full width "
         "(deepseek-moe-16b, minicpm3-4b; rl restored), every family "
         "model-level at full width")
     fam_launches, families = families_phase(torch, np, mods, ckpt_dir)
 
-    log("[10/11] LM training on the card: reduced families against the "
+    log("[10/12] LM training on the card: reduced families against the "
         "CPU, full-width qwen3-0.6b through launch.train (30 steps, "
         "resumed at 20), full-width falcon-mamba-7b under Adafactor")
     train_launches, training = train_phase(torch, np, mods)
     release(torch)
 
-    log("[11/11] the mesh paths on 4 ranks over gloo on the one card: "
+    log("[11/12] the mesh paths on 4 ranks over gloo on the one card: "
         "moe_ep at deepseek-moe-16b's MoE width, pipeline_apply over 4 "
         "qwen3-0.6b layers, the int8 all-reduce of qwen3-0.6b's gradient")
     mesh_launches, mesh = mesh_phase(torch)
+
+    log("[12/12] the dry-run: every ASSIGNED cell on (16, 16) and (2, 16, "
+        "16) on the meta device; phase 10b's and phase 6's cells on (1, 1) "
+        "against what those phases measured")
+    dryrun = dryrun_phase(training, gateway)
     # each path's own counts (reset before it, read after it): phase 5's
     # serve_engine, phase 5b's router path, phase 5c's three parts, phase
     # 5d's four jax and hybrid pool runs, phase 6's gateway under each policy, phase 7's, phase 8's two sweeps and
@@ -4005,7 +4117,8 @@ def main(argv=None) -> int:
                                "gateway": gateway,
                                "gateway_mamba": mamba_gateway,
                                "loop": loop, "families": families,
-                               "training": training, "mesh": mesh})
+                               "training": training, "mesh": mesh,
+                               "dryrun": dryrun})
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

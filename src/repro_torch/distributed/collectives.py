@@ -10,6 +10,11 @@ the collective runs there, and the result is copied back; the choice is
 made from the backend and the op, never by catching an error, and each
 such copy is counted (``host_copies``, ``host_copy_bytes``).  NCCL
 groups, and tensors already on the host, never take that path.
+
+Every all-reduce and all-to-all adds the bytes this rank sends into it
+to ``bytes_moved`` under the reference's kind name.  On the ``meta``
+device (the dry-run's program of one rank) they move nothing and need no
+group: they only add those bytes and return a result of the right shape.
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ GLOO_CUDA_OPS = frozenset({"all_reduce", "all_to_all"})
 #: reset, and the bytes copied each way
 host_copies = 0
 host_copy_bytes = 0
+#: {"all-reduce" | "all-to-all": bytes this rank put in} since the last
+#: reset
+bytes_moved = {}
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -37,6 +45,12 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 def reset_counts() -> None:
     global host_copies, host_copy_bytes
     host_copies = host_copy_bytes = 0
+    bytes_moved.clear()
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    bytes_moved[kind] = bytes_moved.get(kind, 0) + t.numel() * \
+        t.element_size()
 
 
 def axis_group(mesh, axes: Sequence[str]):
@@ -68,6 +82,9 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """In-place all-reduce ("sum" or "max") of ``t``; returns ``t``."""
+    _count("all-reduce", t)
+    if t.device.type == "meta":
+        return t
     if via_host(t, group, "all_reduce"):
         h = _to_host(t)
         dist.all_reduce(h, op=_REDUCE_OPS[op], group=group)
@@ -82,6 +99,9 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     ``all_to_all`` over axis 0): block i of ``t`` goes to the group's
     rank i, and block j of the result came from rank j."""
     t = t.contiguous()
+    if t.device.type == "meta":
+        return _MetaAllToAll.apply(t)
+    _count("all-to-all", t)
     if via_host(t, group, "all_to_all"):
         h = _to_host(t)
         out = torch.empty_like(h)
@@ -90,6 +110,22 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
     return out
+
+
+class _MetaAllToAll(torch.autograd.Function):
+    """The all-to-all on meta: its bytes counted, a result of its shape,
+    and, under autograd, the backward's all-to-all of the gradient counted
+    too."""
+
+    @staticmethod
+    def forward(ctx, t):
+        _count("all-to-all", t)
+        return torch.empty_like(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _count("all-to-all", grad)
+        return torch.empty_like(grad)
 
 
 def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:

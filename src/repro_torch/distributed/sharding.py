@@ -218,6 +218,30 @@ def placements(spec: Spec, mesh):
     return out
 
 
+def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` under
+    ``spec`` (:func:`local_shard`'s blocks: each dim over axes a0, a1, ...
+    cut into prod(sizes) equal blocks)."""
+    sizes = axis_sizes(mesh)
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} does not fit a tensor of "
+                         f"{len(shape)} dims")
+    out = []
+    for d, (dim, axes) in enumerate(zip(shape, spec)):
+        n = math.prod(sizes[a] for a in axes) if axes else 1
+        if dim % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"over {axes} ({n})")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def local_nbytes(shape, dtype, spec: Spec, mesh) -> int:
+    """Bytes of one rank's block of a ``dtype`` tensor of ``shape`` under
+    ``spec``."""
+    return math.prod(local_shape(shape, spec, mesh)) * dtype.itemsize
+
+
 def local_shard(x, spec: Spec, mesh, coords: Optional[Dict[str, int]] = None):
     """This rank's block of the full tensor ``x`` under ``spec`` (a view):
     each dim over axes (a0, a1, ...) is cut into prod(sizes) equal blocks
@@ -227,18 +251,12 @@ def local_shard(x, spec: Spec, mesh, coords: Optional[Dict[str, int]] = None):
     sizes = axis_sizes(mesh)
     if coords is None:
         coords = mesh_coords(mesh)
-    if len(spec) != x.dim():
-        raise ValueError(f"spec {spec} does not fit a tensor of "
-                         f"{x.dim()} dims")
+    blocks = local_shape(tuple(x.shape), spec, mesh)
     for d, axes in enumerate(spec):
         if not axes:
             continue
-        n = math.prod(sizes[a] for a in axes)
-        if x.shape[d] % n:
-            raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide "
-                             f"over {axes} ({n})")
-        block, i = x.shape[d] // n, 0
+        i = 0
         for a in axes:
             i = i * sizes[a] + coords[a]
-        x = x.narrow(d, i * block, block)
+        x = x.narrow(d, i * blocks[d], blocks[d])
     return x

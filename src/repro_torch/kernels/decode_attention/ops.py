@@ -17,6 +17,12 @@ float-cache and int8-cache modes count their launches apart; each call
 is one launch (for bf16 and int8 caches, the split of S over a cluster
 of 8 blocks merges inside that launch; f32 caches take one block per
 (b, kv-head)).
+
+On the ``meta`` device (the dry-run) :func:`decode_attention` returns an
+empty result of the plain version's shape and adds :func:`cost` to
+``kernels.meta.tally``, counting every cached position valid (a meta
+``kv_len`` has no values); the card's head-dim and group limits are not
+applied there.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta
+from repro_torch.kernels.meta import KernelCost
 from repro_torch.kernels.plain import gqa_core
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -35,6 +43,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the float32/bfloat16-cache mode and the int8-cache mode
 launches = 0
 launches_int8 = 0
+
+
+def valid_positions(kv_lens, s: int) -> int:
+    """The cached positions a call reads: each slot's ``kv_len`` clipped
+    to [0, S], summed over the slots."""
+    return sum(min(max(int(n), 0), s) for n in kv_lens)
+
+
+def cost(b: int, h: int, kvh: int, hd: int, valid: int,
+         itemsize: int = 2, int8: bool = False) -> KernelCost:
+    """The work of one call over ``valid`` cached positions in all (see
+    :func:`valid_positions`): two products of 2 hd FLOPs a (head,
+    position); K and V read (``itemsize`` bytes an element, or int8 with
+    bf16 scales a (position, kv-head)), q read and the output written in
+    ``itemsize`` bytes, the int32 kv_len read."""
+    kv = (2 * valid * kvh * hd + 2 * 2 * valid * kvh if int8
+          else itemsize * 2 * valid * kvh * hd)
+    return KernelCost(4 * hd * h * valid,
+                      kv + itemsize * 2 * b * h * hd + 4 * b)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -122,6 +149,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "or neither")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len, k_scale, v_scale)
+    if meta.is_meta(q):
+        b, _, h, hd = q.shape
+        int8 = k_scale is not None
+        meta.record("decode_attention_int8" if int8 else "decode_attention",
+                    cost(b, h, k.shape[2], hd, b * k.shape[1],
+                         q.element_size(), int8))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device "
                          f"{q.device}")

@@ -18,6 +18,11 @@ only for what training calls -- ``causal=True``, ``q_offset=0``, Sq = Skv
 -- and anything else with grad raises.  On the CPU autograd differentiates
 the plain version; :func:`flash_attention_bwd_plain` writes the same
 backward formula out in PyTorch, the kernel's yardstick on the card.
+
+On the ``meta`` device (the dry-run) every wrapper returns empty results
+of the plain version's shapes and adds :func:`cost` (or
+:func:`cost_bwd`, from the backward under autograd) to
+``kernels.meta.tally``; the card's head-dim limits are not applied there.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta
+from repro_torch.kernels.meta import KernelCost
 from repro_torch.kernels.plain import NEG_INF, gqa_core
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -37,6 +44,38 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: whichever kernels it runs)
 launches = 0
 launches_bwd = 0
+
+
+def cost(b: int, sq: int, skv: int, h: int, kvh: int, hd: int,
+         itemsize: int = 2, causal: bool = True, q_offset: int = 0,
+         lse: bool = False) -> KernelCost:
+    """The forward's work: two products of 2 hd FLOPs a (q, k) pair a
+    head (causal pairs only); q and k, v read, the output written, in
+    ``itemsize`` bytes an element; with ``lse`` (training) the f32 row
+    log-sum-exp written too."""
+    pairs = meta.causal_pairs(sq, skv, q_offset) if causal else sq * skv
+    nbytes = itemsize * (2 * b * sq * h * hd + 2 * b * skv * kvh * hd)
+    return KernelCost(4 * hd * h * pairs * b,
+                      nbytes + (4 * b * h * sq if lse else 0))
+
+
+def cost_bwd(b: int, s: int, h: int, kvh: int, hd: int,
+             itemsize: int = 2) -> KernelCost:
+    """The backward's work (causal, q_offset 0, Sq = Skv): S and dP
+    recomputed, dV, dQ, dK -- five products of 2 hd FLOPs a causal (q, k)
+    pair a head; q, k, v, o, do read and dq, dk, dv written in
+    ``itemsize`` bytes, the f32 lse read."""
+    pairs = meta.causal_pairs(s, s)
+    q_el, kv_el = b * s * h * hd, b * s * kvh * hd
+    nbytes = (itemsize * (3 * q_el + 2 * kv_el)
+              + itemsize * (q_el + 2 * kv_el) + 4 * b * h * s)
+    return KernelCost(5 * 2 * hd * h * pairs * b, nbytes)
+
+
+def _cost_of(q, k, causal=True, q_offset=0, lse=False) -> KernelCost:
+    b, sq, h, hd = q.shape
+    return cost(b, sq, k.shape[1], h, k.shape[2], hd, q.element_size(),
+                causal, q_offset, lse)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -140,6 +179,15 @@ def _check_cuda_inputs(q, k, v, q_offset):
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
 
 
+def _check_grad_call(q, k, causal, q_offset):
+    if not causal or q_offset != 0 or q.shape[1] != k.shape[1]:
+        raise ValueError(
+            "flash_attention: gradients are taken only for causal "
+            "attention with q_offset=0 and Sq == Skv (training); got "
+            f"causal={causal}, q_offset={q_offset}, Sq={q.shape[1]}, "
+            f"Skv={k.shape[1]}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q [B,Sq,H,hd]; k/v [B,Skv,KV,hd] -> [B,Sq,H,hd] in q's dtype.
@@ -148,17 +196,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset)
+    if meta.is_meta(q):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            _check_grad_call(q, k, causal, q_offset)
+            return FlashAttentionFn.apply(q, k, v)
+        meta.record("flash_attention", _cost_of(q, k, causal, q_offset))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device "
                          f"{q.device}")
     _check_cuda_inputs(q, k, v, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if not causal or q_offset != 0 or q.shape[1] != k.shape[1]:
-            raise ValueError(
-                "flash_attention: gradients are taken only for causal "
-                "attention with q_offset=0 and Sq == Skv (training); got "
-                f"causal={causal}, q_offset={q_offset}, Sq={q.shape[1]}, "
-                f"Skv={k.shape[1]}")
+        _check_grad_call(q, k, causal, q_offset)
         return FlashAttentionFn.apply(q, k, v)
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
@@ -179,6 +229,11 @@ def flash_attention_train_fwd(q: torch.Tensor, k: torch.Tensor,
     """The training forward on the card (causal, q_offset 0): (o, lse
     [B,H,S] f32), one launch of ``fa_fwd_tc`` / ``fa_fwd`` with the row
     log-sum-exp written."""
+    if meta.is_meta(q):
+        meta.record("flash_attention", _cost_of(q, k, lse=True))
+        b, s, h, _ = q.shape
+        return (torch.empty_like(q), torch.empty(
+            (b, h, s), dtype=torch.float32, device=q.device))
     _check_cuda_inputs(q, k, v, 0)
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
@@ -201,6 +256,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    torch.Tensor]:
     """The hand-written backward on the card: (dq, dk, dv) in the inputs'
     dtype for causal attention with q_offset 0 and Sq = Skv."""
+    if meta.is_meta(q):
+        b, s, h, hd = q.shape
+        meta.record("flash_attention_bwd", cost_bwd(
+            b, s, h, k.shape[2], hd, q.element_size()))
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     _check_cuda_inputs(q, k, v, 0)
     b, s, h, hd = q.shape
     if k.shape[1] != s:

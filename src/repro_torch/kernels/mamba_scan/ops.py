@@ -18,6 +18,11 @@ blocks and finished, with those over batch and sequence, in a second
 pass, all in a fixed order).  On the CPU autograd
 differentiates the plain version; :func:`mamba_scan_bwd_plain` writes the
 same reverse recursion out in PyTorch, the kernel's yardstick on the card.
+
+On the ``meta`` device (the dry-run) every wrapper returns empty results
+of the plain version's shapes (the training forward's saved states at the
+kernel's interval) and adds :func:`cost` (or :func:`cost_bwd`, from the
+backward under autograd) to ``kernels.meta.tally``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta
+from repro_torch.kernels.meta import KernelCost
 
 SUPPORTED_D_STATE = (4, 8, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +51,50 @@ STATE_CHUNK = 16
 BWD_THREADS = 256
 BWD_LANES = 8
 BWD_CLUSTER = 8
+#: the backward's bound counts the forward's saved states one every this
+#: many steps, whatever interval the kernel saves them at (that it saves
+#: them more often is its own cost, not the function's)
+BOUND_STATE_CHUNK = 64
+
+
+def cost(b: int, s: int, di: int, ds: int,
+         itemsizes=(2, 4, 2, 2)) -> KernelCost:
+    """The forward's work.  ``itemsizes``: bytes an element of xc, dt, b
+    and c (y takes xc's); a_log, d and h_final are f32.  FLOPs a (step,
+    channel, state): dt*a, exp, the state's multiply-add (2), dt*x*B,
+    h*C summed (2); a (step, channel): dt*x, D*x + the sum.  These are
+    f32 operations on the CUDA cores."""
+    xi, dti, bi, ci = itemsizes
+    nbytes = (xi * b * s * di + dti * b * s * di + (bi + ci) * b * s * ds
+              + 4 * di * ds + 4 * di + xi * b * s * di + 4 * b * di * ds)
+    return KernelCost(b * s * di * (7 * ds + 3), nbytes)
+
+
+def cost_bwd(b: int, s: int, di: int, ds: int,
+             itemsizes=(2, 4, 2, 2)) -> KernelCost:
+    """The backward's work.  Read: xc and dy (xc's dtype), dt, b, c,
+    a_log and d, the forward's states one every ``BOUND_STATE_CHUNK``
+    steps (f32); written: dxc, ddt, db, dc in their inputs' dtypes,
+    da_log and dd (f32).  Its operation bound is one exponential exp(dt
+    a) a (step, channel, state) on the special-function units (``exps``;
+    the kernel takes it twice, recomputing each chunk's states: its own
+    cost, not the function's).  FLOPs, a count for the dry-run: a (step,
+    channel, state) the state recomputed (4), g = g e + dy c (3), dc, db,
+    q1, de, ddt and da terms (2 each); a (step, channel) dt x, dx (3),
+    ddt (2), dd (2)."""
+    xi, dti, bi, ci = itemsizes
+    n_states = b * -(-s // BOUND_STATE_CHUNK) * di * ds
+    nbytes = (2 * xi * b * s * di + dti * b * s * di
+              + (bi + ci) * b * s * ds + 2 * (4 * di * ds + 4 * di)
+              + 4 * n_states + xi * b * s * di + dti * b * s * di
+              + (bi + ci) * b * s * ds)
+    return KernelCost(b * s * di * (19 * ds + 8), nbytes, b * s * di * ds)
+
+
+def _cost_args(xc, dt, b, c):
+    bsz, s, di = xc.shape
+    return (bsz, s, di, b.shape[2],
+            tuple(t.element_size() for t in (xc, dt, b, c)))
 
 
 def mamba_scan_plain(xc: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -156,6 +207,11 @@ def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     [B,di,ds] float32)."""
     if xc.device.type == "cpu":
         return mamba_scan_plain(xc, dt, b, c, a_log, d)
+    if meta.is_meta(xc):
+        inputs = (xc, dt, b, c, a_log, d)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            return MambaScanFn.apply(*inputs)
+        return _meta_fwd(xc, dt, b, c)[:2]
     if xc.device.type != "cuda":
         raise ValueError(f"mamba_scan: no kernel for device {xc.device}")
     _check_cuda_inputs(xc, dt, b, c, a_log, d)
@@ -163,6 +219,17 @@ def mamba_scan(xc: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return MambaScanFn.apply(*inputs)
     return _launch_fwd(xc, dt, b, c, a_log, d, None)
+
+
+def _meta_fwd(xc, dt, b, c):
+    """(y, h_final, h_chunks) as empty meta tensors; the cost recorded."""
+    meta.record("mamba_scan", cost(*_cost_args(xc, dt, b, c)))
+    bsz, s, di = xc.shape
+    ds = b.shape[2]
+    return (torch.empty_like(xc),
+            torch.empty((bsz, di, ds), dtype=torch.float32, device="meta"),
+            torch.empty((bsz, -(-s // STATE_CHUNK), di, ds),
+                        dtype=torch.float32, device="meta"))
 
 
 def _launch_fwd(xc, dt, b, c, a_log, d, h_chunks):
@@ -192,6 +259,8 @@ def _launch_fwd(xc, dt, b, c, a_log, d, h_chunks):
 def mamba_scan_train_fwd(xc, dt, b, c, a_log, d):
     """The training forward on the card: (y, h_final, h_chunks), h_chunks
     [B, ceil(S/16), di, ds] f32 the state entering every 16th step."""
+    if meta.is_meta(xc):
+        return _meta_fwd(xc, dt, b, c)
     _check_cuda_inputs(xc, dt, b, c, a_log, d)
     bsz, s, di = xc.shape
     h_chunks = torch.empty((bsz, -(-s // STATE_CHUNK), di, b.shape[2]),
@@ -205,6 +274,9 @@ def mamba_scan_bwd(xc, dt, b, c, a_log, d, h_chunks, dy,
     """The hand-written backward on the card: (dxc, ddt, db, dc, da_log,
     dd) in the inputs' dtypes, from the training forward's ``h_chunks``;
     ``dy`` in xc's dtype, ``dh_final`` f32 [B,di,ds] or None (zero)."""
+    if meta.is_meta(xc):
+        meta.record("mamba_scan_bwd", cost_bwd(*_cost_args(xc, dt, b, c)))
+        return tuple(torch.empty_like(t) for t in (xc, dt, b, c, a_log, d))
     _check_cuda_inputs(xc, dt, b, c, a_log, d)
     bsz, s, di = xc.shape
     ds = b.shape[2]

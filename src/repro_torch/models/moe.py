@@ -19,7 +19,9 @@ Four implementations, each returning ``(y, aux)`` as the reference's do:
              with one all-reduce over the model group a layer.
 
 ``moe_layer`` dispatches as the reference does: ``ep`` runs ``moe_ep``
-under a context with a mesh and ``ragged`` without one.  Expert storage
+under a context with a mesh and ``ragged`` without one.  On the ``meta``
+device (the dry-run) ``ragged`` takes ``dense``'s shapes and ``moe_ep``
+its static capacity shapes, with no host read.  Expert storage
 may hold R replicas of each expert (``params._expert_storage``); the
 non-EP paths read one copy of each (:func:`_unique_experts`).  Routing is
 the reference's: f32 logits from an f32 router, softmax before top-k,
@@ -197,6 +199,8 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     mesh = ctx.mesh
     if mesh is None:
         raise ValueError("EP MoE requires a parallel context mesh")
+    if x_flat.device.type == "meta":
+        return _moe_ep_meta(p, cfg, x_flat, ctx)
     if not hasattr(mesh, "get_group"):
         raise TypeError("moe_ep runs on a DeviceMesh (its process groups), "
                         f"not on {type(mesh).__name__}")
@@ -206,7 +210,7 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
         raise NotImplementedError("moe_ep runs forward only; train "
                                   "without a parallel context")
     m = cfg.moe
-    e, k = m.n_experts, m.top_k
+    e = m.n_experts
     ep_axes = tuple(ctx.ep_axes) or ("data",)
     batch_axes = tuple(ctx.batch_axes) or ep_axes
     sizes = axis_sizes(mesh)
@@ -220,30 +224,9 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     local = {name: _local_weight(w, (ep_axes, tp, None) if name == "w_down"
                                  else (ep_axes, None, tp), axes, coords)
              for name, w in routed.items()}
-    r = max(1, n_shards // e)               # replication factor
     e_loc = max(1, e // n_shards)           # experts a shard
-    t_loc, d = x_flat.shape
-    dev = x_flat.device
-
-    probs, topk_idx, topk_w = _router(p, x_flat, cfg)
-    pair_token = torch.arange(t_loc * k, device=dev) // k
-    pair_expert = topk_idx.reshape(-1)
-    # destination shard: an expert's R replicas take its tokens in turn
-    dest = pair_expert * r + pair_token % r if r > 1 \
-        else pair_expert // e_loc
-    cap = int(-(-t_loc * k // n_shards) * m.capacity_factor)
-    cap = max(8, -(-cap // 8) * 8)
-    onehot = (dest[:, None] == torch.arange(n_shards, device=dev)).long()
-    pos = (torch.cumsum(onehot, 0) - onehot).gather(1, dest[:, None])[:, 0]
-    keep = pos < cap
-    # send buffers; a dropped pair lands in a dump row past the end
-    slot = torch.where(keep, dest * cap + pos, n_shards * cap)
-    send_x = x_flat.new_zeros((n_shards * cap + 1, d))
-    send_x[slot] = x_flat[pair_token]
-    # a slot's local expert; e_loc marks an empty slot
-    send_eid = torch.full((n_shards * cap + 1,), e_loc, dtype=torch.int64,
-                          device=dev)
-    send_eid[slot] = pair_expert % e_loc
+    probs, topk_idx, topk_w, keep, slot, send_x, send_eid = \
+        _ep_dispatch(p, cfg, x_flat, n_shards)
     ep_group = coll.axis_group(mesh, ep_axes)
     rx = coll.all_to_all(send_x[:-1], ep_group)
     reid = coll.all_to_all(send_eid[:-1], ep_group)
@@ -258,14 +241,95 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     y_recv = torch.zeros_like(rx)
     y_recv[rows] = y_rows
     y_back = coll.all_to_all(y_recv, ep_group)
-    y_pairs = torch.where(keep[:, None],
-                          y_back[torch.where(keep, slot, 0)], 0)
-    y = _combine(y_pairs.reshape(t_loc, k, d), topk_w, x_flat.dtype)
+    y = _ep_combine(y_back, keep, slot, topk_w, x_flat, cfg)
     batch_group = coll.axis_group(mesh, batch_axes)
     aux = coll.all_reduce(aux_loss(probs, topk_idx, e), "sum", batch_group)
     ep_calls += 1
     ep_dropped += dropped
     return y, aux / torch.distributed.get_world_size(batch_group)
+
+
+def ep_capacity(t_loc: int, k: int, n_shards: int,
+                capacity_factor: float) -> int:
+    """(token, expert) pairs a destination shard takes from one rank
+    (the reference's, ``moe.py:234-235``): the even share times the
+    capacity factor, rounded up to a multiple of 8, at least 8."""
+    cap = int(-(-t_loc * k // n_shards) * capacity_factor)
+    return max(8, -(-cap // 8) * 8)
+
+
+def _ep_dispatch(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor,
+                 n_shards: int):
+    """``moe_ep``'s routing and send buffers: (probs, topk_idx, topk_w,
+    keep, slot, send_x [n_shards*cap+1, d], send_eid), each pair at
+    ``slot`` of the buffers, a dropped pair in the dump row past the
+    end."""
+    m = cfg.moe
+    e, k = m.n_experts, m.top_k
+    r = max(1, n_shards // e)               # replication factor
+    e_loc = max(1, e // n_shards)           # experts a shard
+    t_loc, d = x_flat.shape
+    dev = x_flat.device
+    probs, topk_idx, topk_w = _router(p, x_flat, cfg)
+    pair_token = torch.arange(t_loc * k, device=dev) // k
+    pair_expert = topk_idx.reshape(-1)
+    # destination shard: an expert's R replicas take its tokens in turn
+    dest = pair_expert * r + pair_token % r if r > 1 \
+        else pair_expert // e_loc
+    cap = ep_capacity(t_loc, k, n_shards, m.capacity_factor)
+    onehot = (dest[:, None] == torch.arange(n_shards, device=dev)).long()
+    pos = (torch.cumsum(onehot, 0) - onehot).gather(1, dest[:, None])[:, 0]
+    keep = pos < cap
+    slot = torch.where(keep, dest * cap + pos, n_shards * cap)
+    send_x = x_flat.new_zeros((n_shards * cap + 1, d))
+    send_x[slot] = x_flat[pair_token]
+    # a slot's local expert; e_loc marks an empty slot
+    send_eid = torch.full((n_shards * cap + 1,), e_loc, dtype=torch.int64,
+                          device=dev)
+    send_eid[slot] = pair_expert % e_loc
+    return probs, topk_idx, topk_w, keep, slot, send_x, send_eid
+
+
+def _ep_combine(y_back, keep, slot, topk_w, x_flat, cfg):
+    """Each pair's returned row (zero where dropped), combined by token."""
+    y_pairs = torch.where(keep[:, None],
+                          y_back[torch.where(keep, slot, 0)], 0)
+    return _combine(y_pairs.reshape(x_flat.shape[0], cfg.moe.top_k, -1),
+                    topk_w, x_flat.dtype)
+
+
+def _moe_ep_meta(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor, ctx):
+    """``moe_ep`` on the ``meta`` device, the dry-run's program of one
+    rank: the static shapes of the reference's ``_ep_local``.  ``x_flat``
+    is the rank's tokens and the routed weights its block (``E_store /
+    shards`` experts, its share of f; a full stored tensor is cut to rank
+    0's block).  The dispatch and combine run as above; the expert FFN
+    runs once over every received row (``n_shards * cap``: the group
+    sizes are data, and the reference's grouped product spans all the
+    capacity slots); the two all-to-alls go through
+    ``distributed.collectives``, which on meta records their bytes and
+    moves nothing.  The model axis's all-reduce of the TP split is left
+    to the dry-run's collective model.  Works under autograd."""
+    from repro_torch.distributed.sharding import local_shard
+    from repro_torch.launch.mesh import axis_sizes
+    ep_axes = tuple(ctx.ep_axes) or ("data",)
+    sizes = axis_sizes(ctx.mesh)
+    n_shards = math.prod(sizes[a] for a in ep_axes)
+    routed = p["routed"]
+    e_store = max(cfg.moe.n_experts, n_shards)     # _expert_storage's
+    if routed["w_up"].shape[0] == e_store and n_shards > 1:
+        axes = (tuple(sizes), tuple(sizes.values()))
+        zero = dict.fromkeys(sizes, 0)
+        routed = {name: local_shard(w, (ep_axes, None, None), axes, zero)
+                  for name, w in routed.items()}
+    probs, topk_idx, topk_w, keep, slot, send_x, send_eid = \
+        _ep_dispatch(p, cfg, x_flat, n_shards)
+    rx = coll.all_to_all(send_x[:-1])
+    coll.all_to_all(send_eid[:-1])
+    y_rows = _expert_ffn(routed, cfg, 0, rx)
+    y_back = coll.all_to_all(y_rows)
+    y = _ep_combine(y_back, keep, slot, topk_w, x_flat, cfg)
+    return y, aux_loss(probs, topk_idx, cfg.moe.n_experts)
 
 
 def moe_gather(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
@@ -311,7 +375,9 @@ def moe_layer(p: Dict, cfg: ModelConfig,
         ctx = dist_ctx.get()
         if ctx.mesh is None:
             impl = "ragged"
-        else:
+        elif x.device.type != "meta":
+            # on meta x is one rank's tokens (the dry-run's program), for
+            # which the dry-run has applied this rule to the global batch
             sizes = axis_sizes(ctx.mesh)
             shards = math.prod(sizes[a] for a in (ctx.batch_axes
                                                   or ctx.ep_axes))
@@ -319,6 +385,8 @@ def moe_layer(p: Dict, cfg: ModelConfig,
                 impl = "gather"     # e.g. single-token long-context decode
     if t <= 8 and impl != "ep":
         impl = "gather"
+    if impl == "ragged" and x.device.type == "meta":
+        impl = "dense"      # ragged's group sizes are data; dense's shapes
     if impl == "ep":
         y, aux = moe_ep(p, cfg, x_flat)
     elif impl in IMPLS:

@@ -161,7 +161,47 @@ def _moe(rank, world, inp, kw):
     return out
 
 
-CASES = {"pipeline": _pipeline, "compress": _compress, "moe": _moe}
+def _moe_bytes(rank, world, inp, kw):
+    """``moe_ep`` of reduced ``kw["arch"]`` (experts ``kw["experts"]``
+    top-``kw["top_k"]``, capacity factor ``kw["cf"]``) on ``kw["tokens"]``
+    seeded tokens a data shard, on a (data, model) mesh: the bytes this rank put
+    into all-to-alls, counted by ``distributed.collectives``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import context as dist_ctx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    data, model = int(kw["data"]), int(kw["model"])
+    mesh = make_mesh((data, model), ("data", "model"), device="cpu")
+    ctx = dist_ctx.ParallelContext(mesh=mesh, batch_axes=("data",),
+                                   model_axis="model", ep_axes=("data",))
+    cfg = get_config(kw["arch"]).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=int(kw["experts"]), top_k=int(kw["top_k"]),
+        impl="ep", capacity_factor=float(kw["cf"])))
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", data_shards=data)
+    p = params["layers"][0]["moe"]
+    p = {k: (v[0] if not isinstance(v, dict) else
+             {n: w[0] for n, w in v.items()}) for k, v in p.items()}
+    # a data shard's tokens, the same on each rank of its model group
+    from repro_torch.launch.mesh import mesh_coords
+    x = torch.randn((int(kw["tokens"]), cfg.d_model),
+                    generator=torch.Generator().manual_seed(
+                        1 + mesh_coords(mesh)["data"]))
+    coll.reset_counts()
+    with torch.no_grad(), dist_ctx.use(ctx):
+        moe.moe_ep(p, cfg, x)
+    return {"all_to_all": np.asarray(coll.bytes_moved["all-to-all"]),
+            "all_reduce": np.asarray(coll.bytes_moved.get("all-reduce", 0))}
+
+
+CASES = {"pipeline": _pipeline, "compress": _compress, "moe": _moe,
+         "moe_bytes": _moe_bytes}
 
 
 def main(argv):

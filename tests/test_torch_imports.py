@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.moe",
             "repro_torch.models.mla", "repro_torch.training.optimizer",
             "repro_torch.training.data", "repro_torch.launch.steps",
-            "repro_torch.launch.train"} <= set(_port_modules())
+            "repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.kernels.meta"} <= set(_port_modules())
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -282,12 +282,14 @@ def test_decode_int8_split_merge_matches_plain(lens, cache):
 
 
 def test_wrappers_refuse_other_devices():
-    q = torch.empty((1, 4, 2, 32), device="meta")
+    # a device with no kernel and no plain branch (meta has the dry-run's)
+    from _torch_device_support import no_kernel_tensor
+    q = no_kernel_tensor((1, 4, 2, 32))
     with pytest.raises(ValueError, match="no kernel for device"):
         fa.flash_attention(q, q, q)
-    qd = torch.empty((1, 1, 2, 32), device="meta")
-    kv = torch.empty((1, 8, 2, 32), device="meta")
-    lens = torch.empty((1,), dtype=torch.int32, device="meta")
+    qd = no_kernel_tensor((1, 1, 2, 32))
+    kv = no_kernel_tensor((1, 8, 2, 32))
+    lens = no_kernel_tensor((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="no kernel for device"):
         da.decode_attention(qd, kv, kv, lens)
 

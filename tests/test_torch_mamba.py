@@ -168,11 +168,13 @@ def test_scan_lane_partition_matches_plain_and_reference(s, ds):
 
 
 def test_scan_wrapper_refuses_other_devices():
-    t = torch.empty((1, 4, 128), device="meta")
-    bm = torch.empty((1, 4, 8), device="meta")
+    # a device with no kernel and no plain branch (meta has the dry-run's)
+    from _torch_device_support import no_kernel_tensor
+    t = no_kernel_tensor((1, 4, 128))
+    bm = no_kernel_tensor((1, 4, 8))
     with pytest.raises(ValueError, match="no kernel for device"):
-        ms.mamba_scan(t, t, bm, bm, torch.empty((128, 8), device="meta"),
-                      torch.empty((128,), device="meta"))
+        ms.mamba_scan(t, t, bm, bm, no_kernel_tensor((128, 8)),
+                      no_kernel_tensor((128,)))
 
 
 def _configs(over_ref=None, **over):
