@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.common.device import resolve_device
+from repro_torch.serving import trace as tr_lib
 
 
 @dataclass(frozen=True)
@@ -198,7 +199,9 @@ def q_values(net: QNetwork, state) -> np.ndarray:
     dev = next(net.parameters()).device
     with torch.no_grad():
         x = torch.as_tensor(np.asarray(state, np.float32), device=dev)
-        return net(x).cpu().numpy()
+        q = net(x)
+    with tr_lib.sync("route_q"):
+        return q.cpu().numpy()
 
 
 def _huber(x, delta):

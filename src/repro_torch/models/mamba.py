@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels.mamba_scan import ops as ms_ops
+from repro_torch.serving import trace as tr_lib
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -62,13 +63,19 @@ def _causal_conv(p: Dict, x: torch.Tensor, state: Optional[torch.Tensor]
 
 
 def _seq(p: Dict, cfg: ModelConfig, x: torch.Tensor):
-    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
-    xc, conv_state = _causal_conv(p, xi, None)
-    xc = F.silu(xc).contiguous()
-    dt, bmat, cmat = _ssm_inputs(p, cfg, xc)
-    y, h_final = ms_ops.mamba_scan(xc, dt, bmat, cmat, p["A_log"], p["D"])
-    y = y * F.silu(z)
-    return y @ p["out_proj"], conv_state, h_final
+    with tr_lib.span("repro.mamba.in_proj"):
+        xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    with tr_lib.span("repro.mamba.conv"):
+        xc, conv_state = _causal_conv(p, xi, None)
+        xc = F.silu(xc).contiguous()
+    with tr_lib.span("repro.mamba.ssm_inputs"):
+        dt, bmat, cmat = _ssm_inputs(p, cfg, xc)
+    with tr_lib.span("repro.mamba.scan"):
+        y, h_final = ms_ops.mamba_scan(xc, dt, bmat, cmat, p["A_log"],
+                                       p["D"])
+    with tr_lib.span("repro.mamba.out"):
+        y = y * F.silu(z)
+        return y @ p["out_proj"], conv_state, h_final
 
 
 def mamba_seq(p: Dict, cfg: ModelConfig, x: torch.Tensor):
@@ -91,17 +98,23 @@ def mamba_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict):
     [B,di,ds]} -> (y [B,1,d], new states in x's dtype).  The state is
     read as f32, stepped, and stored back in x's dtype every step."""
     conv_state, h = cache["conv"], cache["ssm"]
-    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)    # [B,1,di]
-    xc, conv_state = _causal_conv(p, xi, conv_state)
-    xc = F.silu(xc)
-    dt, bmat, cmat = _ssm_inputs(p, cfg, xc)
-    a = -torch.exp(p["A_log"].float())
-    dtf = dt[:, 0]                                      # [B,di] f32
-    x0 = xc[:, 0].float()
-    decay = torch.exp(dtf[..., None] * a)               # [B,di,ds]
-    drive = (dtf * x0)[..., None] * bmat[:, 0].float()[:, None, :]
-    h = decay * h.float() + drive
-    y = torch.sum(h * cmat[:, 0].float()[:, None, :], dim=-1)
-    y = y + x0 * p["D"]
-    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
-    return y @ p["out_proj"], {"conv": conv_state, "ssm": h.to(x.dtype)}
+    with tr_lib.span("repro.mamba.in_proj"):
+        xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)  # [B,1,di]
+    with tr_lib.span("repro.mamba.conv"):
+        xc, conv_state = _causal_conv(p, xi, conv_state)
+        xc = F.silu(xc)
+    with tr_lib.span("repro.mamba.ssm_inputs"):
+        dt, bmat, cmat = _ssm_inputs(p, cfg, xc)
+    with tr_lib.span("repro.mamba.scan"):
+        a = -torch.exp(p["A_log"].float())
+        dtf = dt[:, 0]                                  # [B,di] f32
+        x0 = xc[:, 0].float()
+        decay = torch.exp(dtf[..., None] * a)           # [B,di,ds]
+        drive = (dtf * x0)[..., None] * bmat[:, 0].float()[:, None, :]
+        h = decay * h.float() + drive
+        y = torch.sum(h * cmat[:, 0].float()[:, None, :], dim=-1)
+        y = y + x0 * p["D"]
+    with tr_lib.span("repro.mamba.out"):
+        y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
+        return y @ p["out_proj"], {"conv": conv_state,
+                                   "ssm": h.to(x.dtype)}

@@ -52,6 +52,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ops
 from repro_torch.models.params import torch_dtype
+from repro_torch.serving import trace as tr_lib
 
 
 def ffn_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -180,37 +181,42 @@ def _layer(p: Dict, cfg: ModelConfig, pos: int, x: torch.Tensor,
     its cache entry updated in place (``mode`` "prefill" or "decode";
     "train" has none).  Returns (x, the MoE aux loss or None)."""
     kind = cfg.layer_kind(pos)
-    h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if kind == "mamba":
-        y = _mamba(p["mamba"], cfg, h, mode, entry, slot)
-    elif kind == "cross":
-        y = _gate(_cross(p, cfg, h, mode, entry, vis, slot), p["gate_attn"])
-    elif cfg.attention == "mla":
-        if mode == "train":
-            y = mla_mod.mla_train(p["attn"], cfg, h, positions)
+    with tr_lib.span("repro.model.mamba" if kind == "mamba"
+                     else "repro.model.attn"):
+        h = ops.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if kind == "mamba":
+            y = _mamba(p["mamba"], cfg, h, mode, entry, slot)
+        elif kind == "cross":
+            y = _gate(_cross(p, cfg, h, mode, entry, vis, slot),
+                      p["gate_attn"])
+        elif cfg.attention == "mla":
+            if mode == "train":
+                y = mla_mod.mla_train(p["attn"], cfg, h, positions)
+            elif mode == "prefill":
+                y = mla_mod.mla_prefill(p["attn"], cfg, h, positions, entry,
+                                        slot)
+            else:
+                y = mla_mod.mla_decode(p["attn"], cfg, h, positions, entry)
+        elif mode == "train":
+            y = attn.self_attention_train(p["attn"], cfg, h, positions)
         elif mode == "prefill":
-            y = mla_mod.mla_prefill(p["attn"], cfg, h, positions, entry,
-                                    slot)
+            y = attn.self_attention_prefill(p["attn"], cfg, h, positions,
+                                            entry, slot)
         else:
-            y = mla_mod.mla_decode(p["attn"], cfg, h, positions, entry)
-    elif mode == "train":
-        y = attn.self_attention_train(p["attn"], cfg, h, positions)
-    elif mode == "prefill":
-        y = attn.self_attention_prefill(p["attn"], cfg, h, positions,
-                                        entry, slot)
-    else:
-        y = attn.self_attention_decode(p["attn"], cfg, h, positions, entry)
-    x = x + y
+            y = attn.self_attention_decode(p["attn"], cfg, h, positions,
+                                           entry)
+        x = x + y
     aux = None
     if "ln2" in p:
-        h2 = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        if "moe" in p:
-            y2, aux = moe_mod.moe_layer(p["moe"], cfg, h2)
-        else:
-            y2 = ffn_forward(p["ffn"], cfg, h2)
-        if kind == "cross":
-            y2 = _gate(y2, p["gate_ffn"])
-        x = x + y2
+        with tr_lib.span("repro.model.ffn"):
+            h2 = ops.rmsnorm(x, p["ln2"], cfg.norm_eps)
+            if "moe" in p:
+                y2, aux = moe_mod.moe_layer(p["moe"], cfg, h2)
+            else:
+                y2 = ffn_forward(p["ffn"], cfg, h2)
+            if kind == "cross":
+                y2 = _gate(y2, p["gate_ffn"])
+            x = x + y2
     return x, aux
 
 
@@ -274,12 +280,13 @@ def _embed(params: Dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
 
 
 def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings and cfg.input_mode == "tokens":
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["lm_head"]
-    return ops.softcap(logits, cfg.logit_softcap)
+    with tr_lib.span("repro.model.head"):
+        x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.tie_embeddings and cfg.input_mode == "tokens":
+            logits = x @ params["embed"].T
+        else:
+            logits = x @ params["lm_head"]
+        return ops.softcap(logits, cfg.logit_softcap)
 
 
 def _cache_len(cfg: ModelConfig, cache: Dict) -> Optional[int]:

@@ -39,6 +39,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import context as dist_ctx
 from repro_torch.models import ops
+from repro_torch.serving import trace as tr_lib
 
 #: ``moe_ep`` calls since the last reset, and the (token, expert) pairs
 #: they dropped past capacity
@@ -48,25 +49,28 @@ ep_dropped = 0
 
 def _router(p: Dict, x: torch.Tensor, cfg: ModelConfig):
     """x [T,d] -> (probs [T,E] f32, topk_idx [T,k], topk_w [T,k] f32)."""
-    logits = x.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    # a stable descending sort keeps the lower index first among equal
-    # probabilities (torch.topk promises no order among ties)
-    topk_w, topk_idx = torch.sort(probs, dim=-1, descending=True,
-                                  stable=True)
-    topk_w = topk_w[:, :cfg.moe.top_k]
-    topk_idx = topk_idx[:, :cfg.moe.top_k]
-    topk_w = topk_w / torch.clamp(topk_w.sum(-1, keepdim=True), min=1e-9)
-    return probs, topk_idx, topk_w
+    with tr_lib.span("repro.moe.gate"):
+        logits = x.float() @ p["router"].float()
+        probs = torch.softmax(logits, dim=-1)
+        # a stable descending sort keeps the lower index first among equal
+        # probabilities (torch.topk promises no order among ties)
+        topk_w, topk_idx = torch.sort(probs, dim=-1, descending=True,
+                                      stable=True)
+        topk_w = topk_w[:, :cfg.moe.top_k]
+        topk_idx = topk_idx[:, :cfg.moe.top_k]
+        topk_w = topk_w / torch.clamp(topk_w.sum(-1, keepdim=True),
+                                      min=1e-9)
+        return probs, topk_idx, topk_w
 
 
 def aux_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
              n_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum_e f_e * P_e."""
-    sel = torch.nn.functional.one_hot(topk_idx, n_experts).float()
-    f = torch.mean(torch.sum(sel, dim=1), dim=0)    # fraction routed * k
-    p_mean = torch.mean(probs, dim=0)
-    return n_experts * torch.sum(f * p_mean) / topk_idx.shape[1]
+    with tr_lib.span("repro.moe.aux"):
+        sel = torch.nn.functional.one_hot(topk_idx, n_experts).float()
+        f = torch.mean(torch.sum(sel, dim=1), dim=0)  # fraction routed * k
+        p_mean = torch.mean(probs, dim=0)
+        return n_experts * torch.sum(f * p_mean) / topk_idx.shape[1]
 
 
 def _unique_experts(p: Dict, cfg: ModelConfig) -> Dict:
@@ -83,23 +87,25 @@ def _all_experts(p: Dict, cfg: ModelConfig,
     over the stacked experts a weight matrix (``[E,T,d] @ [E,d,f]``), so
     each expert's weights are read once and never copied."""
     act = ops.activation(cfg.activation)
-    xe = x[None].expand(p["w_up"].shape[0], -1, -1)
-    h = xe @ p["w_up"]
-    if cfg.gated_mlp:
-        h = act(xe @ p["w_gate"]) * h
-    else:
-        h = act(h)
-    return h @ p["w_down"]
+    with tr_lib.span("repro.moe.experts"):
+        xe = x[None].expand(p["w_up"].shape[0], -1, -1)
+        h = xe @ p["w_up"]
+        if cfg.gated_mlp:
+            h = act(xe @ p["w_gate"]) * h
+        else:
+            h = act(h)
+        return h @ p["w_down"]
 
 
 def moe_dense(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     probs, topk_idx, topk_w = _router(p, x_flat, cfg)
     y_all = _all_experts(_unique_experts(p["routed"], cfg), cfg,
                          x_flat)                             # [E,T,d]
-    comb = torch.zeros(probs.shape, dtype=torch.float32,
-                       device=x_flat.device)
-    comb.scatter_(1, topk_idx, topk_w)
-    y = torch.einsum("te,etd->td", comb.to(x_flat.dtype), y_all)
+    with tr_lib.span("repro.moe.combine"):
+        comb = torch.zeros(probs.shape, dtype=torch.float32,
+                           device=x_flat.device)
+        comb.scatter_(1, topk_idx, topk_w)
+        y = torch.einsum("te,etd->td", comb.to(x_flat.dtype), y_all)
     return y, aux_loss(probs, topk_idx, cfg.moe.n_experts)
 
 
@@ -119,12 +125,14 @@ def _grouped_ffn(p: Dict, cfg: ModelConfig, x_sorted: torch.Tensor,
                  sizes) -> torch.Tensor:
     """Rows grouped by expert (``sizes[e]`` rows of expert e, in order)
     through their experts: x_sorted [sum(sizes), d] -> [sum(sizes), d]."""
-    outs, start = [], 0
-    for e, n in enumerate(sizes):
-        if n:
-            outs.append(_expert_ffn(p, cfg, e, x_sorted[start:start + n]))
-            start += n
-    return torch.cat(outs) if outs else x_sorted[:0]
+    with tr_lib.span("repro.moe.experts"):
+        outs, start = [], 0
+        for e, n in enumerate(sizes):
+            if n:
+                outs.append(_expert_ffn(p, cfg, e,
+                                        x_sorted[start:start + n]))
+                start += n
+        return torch.cat(outs) if outs else x_sorted[:0]
 
 
 def moe_ragged(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
@@ -134,18 +142,24 @@ def moe_ragged(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     m = cfg.moe
     t = x_flat.shape[0]
     probs, topk_idx, topk_w = _router(p, x_flat, cfg)
-    flat_expert = topk_idx.reshape(-1)                       # [T*k]
-    order = torch.argsort(flat_expert, stable=True)
-    token_of_pair = torch.arange(t * m.top_k, device=x_flat.device) \
-        // m.top_k
-    x_sorted = x_flat[token_of_pair[order]]
-    sizes = torch.bincount(flat_expert, minlength=m.n_experts).tolist()
+    with tr_lib.span("repro.moe.dispatch"):
+        flat_expert = topk_idx.reshape(-1)                   # [T*k]
+        order = torch.argsort(flat_expert, stable=True)
+        token_of_pair = torch.arange(t * m.top_k, device=x_flat.device) \
+            // m.top_k
+        x_sorted = x_flat[token_of_pair[order]]
+        # bincount reads its input's min and max to the host
+        with tr_lib.sync("moe_bincount"):
+            counts = torch.bincount(flat_expert, minlength=m.n_experts)
+        with tr_lib.sync("moe_sizes"):
+            sizes = counts.tolist()
     y_sorted = _grouped_ffn(_unique_experts(p["routed"], cfg), cfg,
                             x_sorted, sizes)
-    y_pairs = torch.empty_like(y_sorted)
-    y_pairs[order] = y_sorted                                # unsort
-    return _combine(y_pairs.reshape(t, m.top_k, -1), topk_w,
-                    x_flat.dtype), aux_loss(probs, topk_idx, m.n_experts)
+    with tr_lib.span("repro.moe.combine"):
+        y_pairs = torch.empty_like(y_sorted)
+        y_pairs[order] = y_sorted                            # unsort
+        y = _combine(y_pairs.reshape(t, m.top_k, -1), topk_w, x_flat.dtype)
+    return y, aux_loss(probs, topk_idx, m.n_experts)
 
 
 def _combine(y_pairs: torch.Tensor, topk_w: torch.Tensor, dtype):
@@ -231,8 +245,11 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     rx = coll.all_to_all(send_x[:-1], ep_group)
     reid = coll.all_to_all(send_eid[:-1], ep_group)
     order = torch.argsort(reid, stable=True)
-    stats = torch.cat([torch.bincount(reid, minlength=e_loc + 1)[:e_loc],
-                       (~keep).sum().view(1)]).tolist()
+    # bincount reads its input's min and max to the host
+    with tr_lib.sync("ep_bincount"):
+        counts = torch.bincount(reid, minlength=e_loc + 1)
+    with tr_lib.sync("ep_sizes"):
+        stats = torch.cat([counts[:e_loc], (~keep).sum().view(1)]).tolist()
     group_sizes, dropped = stats[:-1], stats[-1]
     rows = order[:sum(group_sizes)]
     y_rows = _grouped_ffn(local, cfg, rx[rows], group_sizes)
@@ -241,7 +258,8 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     y_recv = torch.zeros_like(rx)
     y_recv[rows] = y_rows
     y_back = coll.all_to_all(y_recv, ep_group)
-    y = _ep_combine(y_back, keep, slot, topk_w, x_flat, cfg)
+    with tr_lib.span("repro.moe.combine"):
+        y = _ep_combine(y_back, keep, slot, topk_w, x_flat, cfg)
     batch_group = coll.axis_group(mesh, batch_axes)
     aux = coll.all_reduce(aux_loss(probs, topk_idx, e), "sum", batch_group)
     ep_calls += 1
@@ -345,10 +363,11 @@ def moe_gather(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     probs, topk_idx, topk_w = _router(p, x_flat, cfg)
     y_all = _all_experts(_unique_experts(p["routed"], cfg), cfg,
                          x_flat)                             # [E,T,d]
-    rows = torch.arange(x_flat.shape[0], device=x_flat.device)
-    y = y_all[topk_idx, rows[:, None]]                       # [T,k,d]
-    return _combine(y, topk_w, x_flat.dtype), aux_loss(
-        probs, topk_idx, cfg.moe.n_experts)
+    with tr_lib.span("repro.moe.combine"):
+        rows = torch.arange(x_flat.shape[0], device=x_flat.device)
+        y = y_all[topk_idx, rows[:, None]]                   # [T,k,d]
+        y = _combine(y, topk_w, x_flat.dtype)
+    return y, aux_loss(probs, topk_idx, cfg.moe.n_experts)
 
 
 #: the single-device implementations
@@ -394,5 +413,6 @@ def moe_layer(p: Dict, cfg: ModelConfig,
     else:
         raise ValueError(impl)
     if m.n_shared:
-        y = y + ffn_forward(p["shared"], cfg, x_flat)
+        with tr_lib.span("repro.moe.shared"):
+            y = y + ffn_forward(p["shared"], cfg, x_flat)
     return y.reshape(shape), aux

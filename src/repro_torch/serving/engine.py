@@ -119,6 +119,10 @@ class LLMInstance:
         """Admit + prefill (at most one request/iteration, vLLM-style) then
         gang-decode every active slot.  Returns requests completed at this
         iteration; advances the virtual clock."""
+        with _trace.span("repro.engine.step"):
+            return self._step()
+
+    def _step(self) -> List[Request]:
         if self.failed:
             return []
         prefill_tokens = 0
@@ -165,14 +169,17 @@ class LLMInstance:
             rng = np.random.default_rng(req.rid)
             toks = rng.integers(0, self.cfg.vocab_size,
                                 size=(req.prompt_tokens,))
-        toks = torch.as_tensor(np.asarray(toks, np.int64)[None, :],
-                               device=self.device)
-        with torch.no_grad():
-            logits, self.cache = self.prefill_fn(self.params, tokens=toks,
-                                                 cache=self.cache, slot=slot)
+        with _trace.span("repro.engine.prefill"):
+            toks = torch.as_tensor(np.asarray(toks, np.int64)[None, :],
+                                   device=self.device)
+            with torch.no_grad():
+                logits, self.cache = self.prefill_fn(
+                    self.params, tokens=toks, cache=self.cache, slot=slot)
+            first = torch.argmax(logits[0])
+            with _trace.sync("first_token"):
+                self.next_tokens[slot] = int(first)
         self.n_prefills += 1
         self.slots[slot] = req
-        self.next_tokens[slot] = int(torch.argmax(logits[0]))
         req.phase = Phase.DECODE
         req.prefilled = req.prompt_tokens
         req.prefill_done = self.clock
@@ -182,15 +189,18 @@ class LLMInstance:
         done: List[Request] = []
         if not active:
             return done
-        toks = torch.as_tensor(self.next_tokens.astype(np.int64),
-                               device=self.device)
-        with torch.no_grad():
-            logits, self.cache = self.decode_fn(self.params,
-                                                cache=self.cache,
-                                                tokens=toks)
+        with _trace.span("repro.engine.decode"):
+            toks = torch.as_tensor(self.next_tokens.astype(np.int64),
+                                   device=self.device)
+            with torch.no_grad():
+                logits, self.cache = self.decode_fn(self.params,
+                                                    cache=self.cache,
+                                                    tokens=toks)
+            # one device->host copy per step, not one per slot
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            with _trace.sync("next_tokens"):
+                nxt = nxt.cpu().numpy()
         self.n_decode_steps += 1
-        # one device->host copy per step, not one per slot
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         tr = self.trace
         for i in active:
             r = self.slots[i]

@@ -216,7 +216,6 @@ class EngineClusterAdapter:
         self.central: deque = deque()
         self.t = 0.0
         self.completed: List[Request] = []
-        self.queue_len_trace: List[int] = []
 
     @property
     def m(self) -> int:
@@ -244,18 +243,18 @@ class EngineClusterAdapter:
     def advance(self) -> List[Request]:
         self.t += self.dt
         done: List[Request] = []
-        for e in self.engines:
-            if e.failed:
-                e.clock = self.t
-                continue
-            while e.clock < self.t:
-                if not e.queue and not any(
-                        s is not None for s in e.slots):
+        with tr_lib.span("repro.cluster.advance"):
+            for e in self.engines:
+                if e.failed:
                     e.clock = self.t
-                    break
-                done.extend(e.step())
+                    continue
+                while e.clock < self.t:
+                    if not e.queue and not any(
+                            s is not None for s in e.slots):
+                        e.clock = self.t
+                        break
+                    done.extend(e.step())
         self.completed.extend(done)
-        self.queue_len_trace.append(len(self.central))
         return done
 
     # -- fault injection (Cluster parity) ------------------------------
@@ -850,14 +849,16 @@ class Gateway:
                     tr.emit(req.arrival, tr_lib.EV_ARRIVE, req.rid,
                             -1, req.tenant,
                             {"prompt": int(req.prompt_tokens)})
-                self._admit(req)
+                with tr_lib.span("repro.gateway.admit"):
+                    self._admit(req)
             self._hedge_stuck()
             if on_pre_route is not None:
                 # every request enqueued this tick (arrivals, drained
                 # overflow, retries, hedge requeues) is still in
                 # cluster.central here
                 on_pre_route(cluster)
-            self._route_some()
+            with tr_lib.span("repro.gateway.route"):
+                self._route_some()
             done_now = cluster.advance()
             for r in done_now:
                 if self._inflight:

@@ -26,6 +26,7 @@ import numpy as np
 from repro_torch.core import policies as legacy, rl_router as rl
 from repro_torch.core import dqn, state as state_lib
 from repro_torch.core.prefix_cache import hit_fractions
+from repro_torch.serving import trace as tr_lib
 
 
 def healthy_candidates(cluster):
@@ -215,30 +216,35 @@ class RLPolicy:
             self.agent.target = target
 
     def route(self, cluster, req, d_hat: int) -> Optional[int]:
-        cfg = self.cfg
-        mask = state_lib.action_mask(cluster)
-        w_sel = cfg.guidance_floor if cfg.variant == "guided" else 0.0
-        scores = rl.mixing_scores(cluster, req, d_hat, cfg.alpha,
-                                  cache_weight=cfg.cache_weight)
-        bonus = rl.guidance_from_scores(cluster, req, d_hat, scores,
-                                        cfg.defer_prior_bias)
-        if (self.agent.cfg.q_arch == "decomposed"
-                or cluster.m + 1 == self.agent.cfg.n_actions):
-            s = state_lib.featurize(
-                cluster, cluster.profile, n_buckets=cfg.n_buckets,
-                include_impact=cfg.include_impact_features,
-                predict_decode=lambda r: d_hat, alpha=cfg.alpha,
-                include_hardware=cfg.include_hardware_features,
-                include_cache=cfg.include_cache_features,
-                include_health=cfg.include_health_features)
-            prior = w_sel * bonus if w_sel else None
-            return int(self.agent.act(
-                s, mask, epsilon=0.0, prior=prior,
-                q_squash=cfg.q_squash if w_sel else 0.0))
-        # fixed-m MLP cannot score a resized cluster: fall back to the
-        # guidance heuristic (same degradation as ManagedCluster)
-        bonus[~mask] = -np.inf
-        return int(np.argmax(bonus))
+        with tr_lib.span("repro.route"):
+            cfg = self.cfg
+            w_sel = cfg.guidance_floor if cfg.variant == "guided" else 0.0
+            scored = (self.agent.cfg.q_arch == "decomposed"
+                      or cluster.m + 1 == self.agent.cfg.n_actions)
+            with tr_lib.span("repro.route.featurize"):
+                mask = state_lib.action_mask(cluster)
+                scores = rl.mixing_scores(cluster, req, d_hat, cfg.alpha,
+                                          cache_weight=cfg.cache_weight)
+                bonus = rl.guidance_from_scores(cluster, req, d_hat, scores,
+                                                cfg.defer_prior_bias)
+                if scored:
+                    s = state_lib.featurize(
+                        cluster, cluster.profile, n_buckets=cfg.n_buckets,
+                        include_impact=cfg.include_impact_features,
+                        predict_decode=lambda r: d_hat, alpha=cfg.alpha,
+                        include_hardware=cfg.include_hardware_features,
+                        include_cache=cfg.include_cache_features,
+                        include_health=cfg.include_health_features)
+            if scored:
+                prior = w_sel * bonus if w_sel else None
+                with tr_lib.span("repro.route.act"):
+                    return int(self.agent.act(
+                        s, mask, epsilon=0.0, prior=prior,
+                        q_squash=cfg.q_squash if w_sel else 0.0))
+            # fixed-m MLP cannot score a resized cluster: fall back to the
+            # guidance heuristic (same degradation as ManagedCluster)
+            bonus[~mask] = -np.inf
+            return int(np.argmax(bonus))
 
     def explain(self, cluster, req, d_hat: int) -> dict:
         """Decompose the greedy decision: raw Q-values, the guidance

@@ -62,11 +62,28 @@ smaller t than its ``route``).  :func:`canonical` orders a stream by
 py-vs-vec parity tests assert: the backends iterate in different orders
 (instance-major vs round-major) but produce the same event *set* with
 bit-identical timestamps.
+
+Wall-clock spans (:func:`span`, :func:`sync`) are a second, separate
+instrument: named ranges of the serving path on the host's wall clock,
+recorded into ``torch.profiler``'s own event stream, so they share the
+kineto clock of the kernels and copies they enclose and need no
+alignment.  They record only while a ``torch.profiler`` (or
+``torch.autograd.profiler``) session runs; otherwise a site costs one
+read of the profiler's flag and returns the shared no-op :data:`OFF`.
+Names (``repro.<layer>.<part>``) and sites are listed in
+docs/TRACING.md.  Each range is a ``_RecordFunctionFast`` (a function
+scope range), not a ``record_function`` (a user scope range): kineto
+copies every user range onto the device's timeline as a
+``gpu_user_annotation`` event, which a reader of device intervals would
+count as device work.
 """
 from __future__ import annotations
 
 from collections import deque
 from typing import Dict, List, Optional, Tuple
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
 # -- event types ------------------------------------------------------------
 
@@ -201,3 +218,41 @@ class TraceRecorder:
         """The retained stream in emission order (debugging only --
         emission order is backend-dependent)."""
         return list(self._buf)
+
+
+# -- wall-clock spans on the profiler's clock ---------------------------------
+
+class _Off:
+    """The context manager of a span site while no profiler runs."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+#: the shared no-op that :func:`span` and :func:`sync` return while no
+#: profiler runs (nothing is allocated or recorded)
+OFF = _Off()
+
+
+def span(name: str):
+    """A named range of the serving path, recorded while the torch
+    profiler is recording and on its clock; otherwise :data:`OFF`."""
+    if _profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return OFF
+
+
+def sync(site: str):
+    """``span("repro.sync." + site)``: wraps one point where the host
+    waits for the card (a device-to-host read), so that each host copy
+    lands inside exactly one ``repro.sync.*`` range.  Counting the
+    copies these ranges enclose counts the host's syncs; their durations
+    are its wait."""
+    if _profiler._is_profiler_enabled:
+        return _RecordFunctionFast("repro.sync." + site)
+    return OFF
