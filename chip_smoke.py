@@ -43,7 +43,11 @@ any failure raises and the process exits non-zero:
      S=1024, di=8192, ds=16, bf16 xc/b/c, f32 dt), at reduced f32 shapes
      with S across the kernel's 4-, 16- and 32-step edges (1 to 1017),
      and with di off its 32-channel blocks and 256-channel clusters, ds
-     4, 8 and 16, bf16 and f32 mixed;
+     4, 8 and 16, bf16 and f32 mixed; the grouped expert FFN at
+     deepseek-moe-16b's widths (64 experts of 1408) on 9, 512 and 16,128
+     pairs over skewed groups with empty ones, against its plain version
+     and the per-group loop it replaced, 2e-2 of max |y|, two launches a
+     call;
   3. timing with CUDA events (median of 30 runs after warm-up, L2 flushed
      before each run; ``ms`` from the call's enqueue on, ``device_ms``
      with a spin kernel ahead of the start event that keeps the card busy
@@ -63,7 +67,10 @@ any failure raises and the process exits non-zero:
      states counted one every 64 steps; the bytes of its partials and of
      its saved states and its shuffles a (step, channel, state) worked out
      from the code, in the log only), each with its share of its bound and
-     the card's name and power limit;
+     the card's name and power limit; the grouped expert FFN at the
+     document cell's mean prefill (2,690 tokens x top-6 over 64 experts)
+     and a 10-row decode, against its bound, its plain version and the
+     per-group loop (``loop_ms``);
   4. small reduced models of every family on the card (kernels)
      against the same models on the CPU (plain versions), prefill 37 + 4
      decode steps, logits within 1e-3: qwen3-0.6b, falcon-mamba-7b,
@@ -179,10 +186,13 @@ any failure raises and the process exits non-zero:
      ``serve_gateway`` under ``rl`` (phase 5b's restored router), 8
      requests (prompts 100-1500, outputs 16-64, 1/s), the launch counts
      read around each run (deepseek: flash 28 x admissions, bf16 decode
-     28 x iterations; minicpm3: none), one decode step and one prefill
+     28 x iterations, the grouped expert FFN 2 x ``ragged`` passes;
+     minicpm3: none), one decode step and one prefill
      of the median prompt profiled; (c) model-level: ``gather``,
-     ``ragged`` and ``dense`` on the same 8 and 512 rows at deepseek's
-     and jamba's widths (within 2e-2 of max |y|, peak memory printed),
+     ``ragged`` (its experts through the grouped kernel, two launches a
+     call), ``ragged_loop`` (the same dispatch on the per-group loop) and
+     ``dense`` on the same 8 and 512 rows at deepseek's and jamba's
+     widths (within 2e-2 of max |y|, peak memory and time printed),
      and 3 decode steps after a 300-token prefill against fresh prefills
      of the same positions for minicpm3-4b, llama-3.2-vision-11b (9.78
      B, vision [1, 1024, 1280], cross gates 0.5 / -0.3),
@@ -291,6 +301,7 @@ DA_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu")
 MS_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 SIM_SOURCE = "src/repro_torch/kernels/sim_rounds/csrc/sim_rounds.cu"
+GF_SOURCE = "src/repro_torch/kernels/grouped_ffn/csrc/grouped_ffn.cu"
 # name, source, the TPU kernel it replaces
 KERNELS = (
     ("flash_attention", FA_SOURCE,
@@ -309,7 +320,15 @@ KERNELS = (
     # the device-resident simulator's round loop: no Pallas kernel, it
     # stands for the XLA program of the reference's jitted while_loop
     ("sim_rounds", SIM_SOURCE, "src/repro/core/jaxsim.py:352"),
+    # the MoE layer's grouped expert FFN: no Pallas kernel, it stands for
+    # the reference's chain of jax.lax.ragged_dot calls
+    ("grouped_ffn", GF_SOURCE, "src/repro/models/moe.py:91"),
 )
+# the grouped expert FFN at deepseek-moe-16b's widths: pairs checked
+# (skewed groups, a quarter of the experts empty), and the document
+# cell's mean prefill timed (2,690 tokens x top-6, every expert reached)
+GROUPED_CHECK_PAIRS = (9, 512, 16128)
+GROUPED_PREFILL_TOKENS = 2690
 # llama-2-7b's decode attention: n_slots=8, cache 2048, MHA 32 x 128
 LLAMA_DECODE = dict(b=8, s=2048, h=32, kvh=32, hd=128)
 # falcon-mamba-7b's selective scan in a 1024-token prefill, and in one of
@@ -395,9 +414,27 @@ def log(*a):
     print(*a, flush=True)
 
 
+# ``moe_ragged`` calls since the last ``reset_launches`` (counted by
+# ``count_ragged``'s wrapper): each launches the grouped kernels twice
+RAGGED_CALLS = [0]
+
+
+def count_ragged(moe):
+    """Wrap ``moe.IMPLS["ragged"]``, the entry ``moe_layer`` dispatches
+    to, so that each call adds one to ``RAGGED_CALLS``."""
+    inner = moe.IMPLS["ragged"]
+
+    def counted(*a, **k):
+        RAGGED_CALLS[0] += 1
+        return inner(*a, **k)
+    moe.IMPLS["ragged"] = counted
+
+
 def reset_launches(m):
     m.fa.launches = m.da.launches = m.da.launches_int8 = m.ms.launches = 0
     m.fa.launches_bwd = m.ms.launches_bwd = m.sim_ops.launches = 0
+    m.gf.launches = m.gf.launches_bwd = 0
+    RAGGED_CALLS[0] = 0
 
 
 def read_launches(m) -> dict:
@@ -407,7 +444,9 @@ def read_launches(m) -> dict:
             "mamba_scan": m.ms.launches,
             "flash_attention_bwd": m.fa.launches_bwd,
             "mamba_scan_bwd": m.ms.launches_bwd,
-            "sim_rounds": m.sim_ops.launches}
+            "sim_rounds": m.sim_ops.launches,
+            "grouped_ffn": m.gf.launches,
+            "grouped_ffn_bwd": m.gf.launches_bwd}
 
 
 def gpu_line() -> str:
@@ -762,6 +801,128 @@ def time_backwards(torch, fa, ms):
         f"({4 * n_states:,} counted in the bound), "
         f"{r['shuffles_per_element']:.3f} shuffles a (step, channel, "
         "state)")
+    del flush
+    return out
+
+
+def grouped_weights(torch, m):
+    """deepseek-moe-16b's routed experts at full width (64 of 1408, top-6;
+    bf16, seeded) for phases 2 and 3's grouped expert FFN."""
+    cfg = m.get_config("deepseek-moe-16b")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = m.params_lib._init_moe(gen, cfg, (), torch.bfloat16,
+                               torch.device("cuda"), 1)
+    return cfg, p["routed"]
+
+
+def grouped_inputs(torch, np, sizes, d, seed):
+    """Rows [sum(sizes), d] bf16 and their group offsets on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((sum(sizes), d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                           dtype=torch.int32, device="cuda")
+    return x, offsets
+
+
+def group_loop(torch, m, p, cfg, x_sorted, sizes):
+    """The per-group loop the grouped kernels replaced: one matmul chain
+    (``moe._expert_ffn``) a non-empty group of ``sizes``, in the rows'
+    dtype; a yardstick, used nowhere else."""
+    outs, start = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            outs.append(m.moe._expert_ffn(p, cfg, e,
+                                          x_sorted[start:start + n]))
+            start += n
+    return torch.cat(outs) if outs else x_sorted[:0]
+
+
+def check_grouped_ffn(torch, np, m, routed):
+    """The grouped kernel at deepseek-moe-16b's widths against its plain
+    version and the per-group loop it replaced, GROUPED_CHECK_PAIRS
+    pairs over skewed groups (a quarter of the experts empty, the first
+    among them): within BF16_TOL of the largest output; two launches a
+    call.  Returns the largest error over max |y|."""
+    cfg, r = routed
+    err = 0.0
+    for pairs in GROUPED_CHECK_PAIRS:
+        rng = np.random.default_rng(pairs)
+        w = 1.0 / np.arange(1, 65) ** 1.2
+        w[rng.permutation(64)[:16]] = 0.0
+        w[0] = 0.0
+        sizes = rng.multinomial(pairs, w / w.sum()).tolist()
+        x, offsets = grouped_inputs(torch, np, sizes, cfg.d_model, pairs)
+        before = m.gf.launches
+        with torch.no_grad():
+            y = m.gf.grouped_ffn(x, offsets, r["w_up"], r["w_gate"],
+                                 r["w_down"], "silu")
+            torch.cuda.synchronize()
+            assert m.gf.launches == before + 2, m.gf.launches
+            plain = m.gf.grouped_ffn_plain(x, offsets, r["w_up"],
+                                           r["w_gate"], r["w_down"], "silu")
+            loop = group_loop(torch, m, r, cfg, x, sizes)
+        errs = {}
+        for name, want in (("plain", plain), ("loop", loop)):
+            scale = float(want.float().abs().max())
+            errs[name] = float((y.float() - want.float()).abs().max()) / scale
+            assert errs[name] <= BF16_TOL, (pairs, name, errs[name])
+        err = max(err, *errs.values())
+        log(f"  grouped_ffn, {pairs} pairs over "
+            f"{sum(1 for n in sizes if n)} experts: max err / max |y| "
+            f"against the plain version {errs['plain']:.3e}, the loop "
+            f"{errs['loop']:.3e} (tol {BF16_TOL})")
+    return {"grouped_ffn": err}
+
+
+def time_grouped_ffn(torch, np, m, routed):
+    """The grouped kernel alone at the document cell's mean prefill
+    (GROUPED_PREFILL_TOKENS tokens, each on 6 distinct experts drawn
+    uniformly): events, median of TIMING_RUNS, L2 flushed, against its
+    ``cost`` bound, its plain version and the per-group loop it replaced
+    (``loop_ms``; its one read of the group sizes included), and at the
+    cell's ~10-row decode (60 pairs)."""
+    cfg, r = routed
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for tokens, key in ((GROUPED_PREFILL_TOKENS, ""), (10, "decode_")):
+        rng = np.random.default_rng(tokens)
+        ids = np.stack([rng.permutation(64)[:cfg.moe.top_k]
+                        for _ in range(tokens)]).reshape(-1)
+        sizes = np.bincount(ids, minlength=64).tolist()
+        x, offsets = grouped_inputs(torch, np, sizes, cfg.d_model, tokens)
+        offs = offsets.cpu()
+
+        def kernel():
+            return m.gf.grouped_ffn(x, offsets, r["w_up"], r["w_gate"],
+                                    r["w_down"], "silu")
+
+        def loop():
+            return group_loop(torch, m, r, cfg, x,
+                              torch.diff(offs).tolist())
+        with torch.no_grad():
+            ms = time_ms(torch, kernel, flush)
+            dev_ms = time_ms(torch, kernel, flush, spin=True)
+            loop_ms = time_ms(torch, loop, flush)
+            plain_ms = time_ms(torch, lambda: m.gf.grouped_ffn_plain(
+                x, offsets, r["w_up"], r["w_gate"], r["w_down"], "silu"),
+                flush, runs=5, warmup=1)
+        reached = sum(1 for n in sizes if n)
+        flops, nbytes, _ = m.gf.cost(len(ids), cfg.d_model, cfg.moe.d_expert,
+                                     reached)
+        b_ms, b_by = bound(flops, nbytes)
+        rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   loop_ms=loop_ms, library_ms=None, library_device_ms=None,
+                   bound_ms=b_ms, bound_by=b_by,
+                   share_of_bound=b_ms / dev_ms,
+                   shape=f"P={len(ids)} pairs ({tokens} tokens x top-6) "
+                   f"over {reached} experts, d=2048 f=1408 E=64 bf16 "
+                   "gated SiLU")
+        log(f"  grouped_ffn [{rec['shape']}]: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms, {100 * rec['share_of_bound']:.1f}% of the "
+            f"bound), the loop {loop_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        out.update({key + k: v for k, v in rec.items()})
     del flush
     return out
 
@@ -2489,15 +2650,18 @@ def layer_counts(cfg):
 
 def expect_layers(cfg, launches, prefills, steps):
     """Each kernel once a layer of its kind per prefill (flash, the scan)
-    or per decode step (the cache's decode mode), nothing else; at least
-    one of each pass ran."""
+    or per decode step (the cache's decode mode), the grouped expert FFN
+    twice a ``moe_ragged`` call (each routed layer's pass over more than
+    8 rows; ``RAGGED_CALLS`` since the launches were reset), nothing
+    else; at least one of each pass ran."""
     assert prefills > 0 and steps > 0, (prefills, steps)
     attn, mamba = layer_counts(cfg)
     dec = ("decode_attention_int8" if cfg.kv_cache_dtype == "int8"
            else "decode_attention")
     want = {"flash_attention": attn * prefills, "decode_attention": 0,
             "decode_attention_int8": 0, "mamba_scan": mamba * prefills,
-            "flash_attention_bwd": 0, "mamba_scan_bwd": 0}
+            "flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "grouped_ffn": 2 * RAGGED_CALLS[0], "grouped_ffn_bwd": 0}
     want[dec] = attn * steps
     got = {k: launches[k] for k in want}
     assert got == want, (launches, want)
@@ -2715,13 +2879,28 @@ def gather_with_copies(torch, m, cfg, p, x):
     return torch.sum(y * w[..., None].to(y.dtype), dim=1).to(x.dtype)
 
 
+def ragged_loop(torch, m, p, cfg, x):
+    """``moe_ragged`` with its experts on the per-group loop (one read of
+    the group offsets, one matmul chain a group), as before the grouped
+    kernels; a yardstick for 9c (i)."""
+    experts = m.moe._ragged_experts
+    m.moe._ragged_experts = lambda p, cfg, xs, offsets: group_loop(
+        torch, m, p, cfg, xs, torch.diff(offsets).tolist())
+    try:
+        return m.moe.moe_ragged(p, cfg, x)
+    finally:
+        m.moe._ragged_experts = experts
+
+
 def moe_check(torch, m, cfg, p_moe, name):
-    """9c (i): ``gather``, ``ragged`` and ``dense`` on the same hidden
-    rows at full width route the same rows the same way, so they agree
-    within MOE_CHECK_TOL of the largest output.  Each one's peak memory
-    beside the weights and its time (``time_ms``: CUDA events, median
-    of TIMING_RUNS, L2 flushed) are printed, and at 8 rows (the engine's decode) the reference's gather
-    with weight copies beside the port's."""
+    """9c (i): ``gather``, ``ragged`` (its experts through the grouped
+    kernel, two launches a call), the same dispatch on the per-group loop
+    (``ragged_loop``) and ``dense`` on the same hidden rows at full width
+    route the same rows the same way, so they agree within MOE_CHECK_TOL
+    of the largest output.  Each one's peak memory beside the weights and
+    its time (``time_ms``: CUDA events, median of TIMING_RUNS, L2
+    flushed) are printed, and at 8 rows (the engine's decode) the
+    reference's gather with weight copies beside the port's."""
     assert cfg.gated_mlp and cfg.activation == "silu", cfg
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -2730,13 +2909,18 @@ def moe_check(torch, m, cfg, p_moe, name):
         x = torch.randn((rows, cfg.d_model), generator=gen, device="cuda")
         x = x.to(m.params_lib.torch_dtype(cfg.dtype))
         res = {}
+        impls = dict(m.moe.IMPLS,
+                     ragged_loop=lambda *a: ragged_loop(torch, m, *a))
         with torch.no_grad():
-            for impl, fn in m.moe.IMPLS.items():
+            for impl, fn in impls.items():
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
+                grouped = m.gf.launches
                 y, aux = fn(p_moe, cfg, x)
                 torch.cuda.synchronize()
+                assert m.gf.launches - grouped == (
+                    2 if impl == "ragged" else 0), (impl, m.gf.launches)
                 res[impl] = dict(
                     y=y, aux=float(aux), peak_gb=(
                         torch.cuda.max_memory_allocated() - base) / 1e9,
@@ -3154,7 +3338,10 @@ def families_phase(torch, np, m, ckpt_dir):
     moe_launches = read_launches(m)
     launches["moe_impls"] = {k: v + moe_launches[k]
                              for k, v in launches["moe_impls"].items()}
-    assert not any(launches["moe_impls"].values()), launches["moe_impls"]
+    # only ragged's grouped experts launch a kernel of the port there
+    assert launches["moe_impls"]["grouped_ffn"] > 0 and not any(
+        v for k, v in launches["moe_impls"].items()
+        if k != "grouped_ffn"), launches["moe_impls"]
     launches["check_jamba"], out["check_jamba"] = decode_check(
         torch, m, cfg, params, "jamba-v0.1-52b (one period)", routed=True)
     del params
@@ -3256,8 +3443,8 @@ def train_reduced(torch, m):
             f"({n_unsure} entries at rounding-level or near-zero "
             f"gradients within 2 lr)")
     launches = read_launches(m)
-    assert launches["flash_attention_bwd"] and launches["mamba_scan_bwd"], \
-        launches
+    assert launches["flash_attention_bwd"] and launches["mamba_scan_bwd"] \
+        and launches["grouped_ffn_bwd"], launches
     log(f"  launches (10a): {launches}")
     return launches
 
@@ -3642,6 +3829,7 @@ def mesh_worker(rank, world, store, out_dir):
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.grouped_ffn import ops as gf
     from repro_torch.kernels.sim_rounds import ops as sim_ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import model as model_lib
@@ -3651,7 +3839,7 @@ def mesh_worker(rank, world, store, out_dir):
         get_config=get_config, coll=coll, compression=compression,
         pipeline=pipeline, sharding=sharding, dist_ctx=dist_ctx,
         mesh_lib=mesh_lib, model_lib=model_lib, moe=moe,
-        params_lib=params_lib, fa=fa, da=da, ms=ms, sim_ops=sim_ops)
+        params_lib=params_lib, fa=fa, da=da, ms=ms, sim_ops=sim_ops, gf=gf)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300))
@@ -3908,6 +4096,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.grouped_ffn import ops as gf
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.sim_rounds import ops as sim_ops
     from repro_torch.launch import mesh as mesh_lib
@@ -3957,7 +4146,8 @@ def main(argv=None) -> int:
         OracleLength=OracleLength, sim=sim, legacy=legacy, cal=cal,
         fid=fid, moe=moe_mod, model_lib=model_lib, jaxsim=jaxsim,
         vecsim=vecsim, state=state, sim_ops=sim_ops, mesh_lib=mesh_lib,
-        dist_ctx=dist_ctx, coll=coll)
+        dist_ctx=dist_ctx, coll=coll, gf=gf)
+    count_ragged(moe_mod)
     # nvcc builds the kernels in the background while phase 5b, which
     # launches none of them, runs
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -3981,6 +4171,8 @@ def main(argv=None) -> int:
     log("[2/12] kernels against their plain versions on the card")
     errs = check_kernels(torch, fa, da, ms, quantize_kv)
     errs.update(check_backwards(torch, fa, ms))
+    routed = grouped_weights(torch, mods)
+    errs.update(check_grouped_ffn(torch, np, mods, routed))
 
     log("[3/12] timing (CUDA events, median of "
         f"{TIMING_RUNS}, L2 flushed)")
@@ -3990,6 +4182,9 @@ def main(argv=None) -> int:
     times = time_kernels(torch, fa, da, ms, quantize_kv, prompt_len=512,
                          kv_lens=kv_lens, kv_lens_int8=kv_lens_int8)
     times.update(time_backwards(torch, fa, ms))
+    times["grouped_ffn"] = time_grouped_ffn(torch, np, mods, routed)
+    del routed
+    torch.cuda.empty_cache()
     if args.kernels_only:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1-3 of "
             f"the port in {SRC})")
@@ -4090,7 +4285,7 @@ def main(argv=None) -> int:
                "library_device_ms": t["library_device_ms"]}
         rec.update({key: t[key] for key in (
             "fixed_device_ms", "floor_device_ms", "share_of_bound",
-            "library_ratio") if key in t})
+            "library_ratio", "loop_ms") if key in t})
         # second shapes: flash at llama-2-7b's prefill, the scan at a
         # short prompt
         for base, second, prefix in (

@@ -2,10 +2,12 @@
 
 Every ``csrc/*.cu`` source under ``repro_torch/kernels`` is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, loaded with ``ctypes``.  The build runs at the first call that
+interface, loaded with ``ctypes``; the sources include the shared
+``*.cuh`` headers beside them.  The build runs at the first call that
 needs a kernel -- never at import, so the CPU-only tests import every
-module -- into ``build/repro_torch_kernels/<hash of the sources>/`` at the
-root of the checkout, and is reused while the sources are unchanged.  One
+module -- into ``build/repro_torch_kernels/<hash of the sources and
+headers>/`` at the root of the checkout, and is reused while they are
+unchanged.  One
 ``nvcc`` per source runs in parallel, then a link step; a failed build
 raises with the compiler's output.
 """
@@ -62,11 +64,23 @@ SIGNATURES = {
     # f64 block, i64 block, host offsets table, L, S, Q, E, W, threads,
     # stream
     "repro_sim_rounds": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, offsets, w_up, w_gate, w_down, h, y, P, d, f, E, the weights'
+    # strides (int64[6]), gated, activation, dtype, stream
+    "repro_grouped_ffn": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                          _I, _I, _I, _P),
+    # x, offsets, w_up, w_gate, w_down, dy, u, g, h, dx, dw_up, dw_gate,
+    # dw_down, P, d, f, E, strides, gated, activation, dtype, stream
+    "repro_grouped_ffn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
 }
 
 
 def sources() -> List[Path]:
     return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(KERNELS_DIR.rglob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -82,10 +96,11 @@ def _nvcc() -> str:
     return found
 
 
-def _digest(srcs: List[Path]) -> str:
+def _digest() -> str:
+    """The hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
-        h.update(p.name.encode())
+    for p in sources() + headers():
+        h.update(str(p.relative_to(KERNELS_DIR)).encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
@@ -94,7 +109,7 @@ def library_path() -> Path:
     """Build the shared library if this checkout's sources have not been
     built yet, and return its path."""
     srcs = sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -141,7 +156,7 @@ def library_path() -> Path:
 def build_log() -> str:
     """The compiler's output (registers, shared memory, spills) of the
     library :func:`library` loads, or '' if it was not built yet."""
-    log = BUILD_ROOT / _digest(sources()) / "build.log"
+    log = BUILD_ROOT / _digest() / "build.log"
     return log.read_text() if log.exists() else ""
 
 

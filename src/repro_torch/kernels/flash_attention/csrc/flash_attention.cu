@@ -56,11 +56,11 @@
 // floats a row so that lane j reading key j hits 32 distinct banks; the
 // KV sweep stops at the causal limit of the tile's last row.
 
-#include <cuda.h>  // CUtensorMap, for the backward's TMA copies
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
+
+#include "../../hopper.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -210,10 +210,6 @@ template <int HD>
 __device__ __forceinline__ int tile_off(int row, int chunk) {
   if constexpr (HD >= 64) return row * HD + ((chunk ^ (row & 7)) << 3);
   return row * HD + ((chunk ^ ((row >> 1) & 3)) << 3);  // 4 chunks a row
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16 bytes global -> shared; src-size 0 (ok false) writes zeros
@@ -586,7 +582,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// -- Hopper primitives of the bf16 backward -----------------------------------
+// -- the bf16 backward's own primitives (the shared ones: hopper.cuh) --------
 
 constexpr int kWg = 128;                          // threads of a warpgroup
 constexpr int kBwdWgs = 2;                        // consumer warpgroups
@@ -603,33 +599,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
-          "r"(bar)
-      : "memory");
-}
-
 // one arrival on the barrier once every cp.async this thread has issued
 // has landed
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
@@ -644,50 +613,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// one arrival on the barrier that also expects `bytes` of TMA copies
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// a TMA copy of the box at (c0, c1, c2, c3) of a 4-d tensor map into shared
-// memory at dst, its bytes counted on the barrier
-__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2, int c3,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving uses of wgmma's registers across the
-// fences and waits around them
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // A 64-row tile of a [*, HD] bf16 array is stored the way wgmma's swizzled
@@ -715,14 +640,6 @@ __device__ __forceinline__ uint32_t sw_off(int r, int c) {
   return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-// a matrix descriptor at shared address addr: lbo, sbo in bytes, the
-// swizzle mode in bits 62-63
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
-}
 // K-major: 8-row groups SBO apart (LBO unused); k-step kk starts 32 bytes
 // further along a row, and at the next column atom after four
 template <int HD>
@@ -758,15 +675,6 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 #pragma unroll
   for (int a = 0; a < HD / 64 + (HD < 64); ++a)
     tma_load4(dst + a * SwTile<HD>::kAtomBytes, map, a * 64, hn, s0, b, bar);
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // the wgmma products the backward issues (one specialisation a width)
@@ -1598,26 +1506,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once in the libcuda the
-// process has loaded (the library itself links only the runtime)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
 }
 
 // the tensor map of a [B, S, heads, HD] bf16 array whose boxes are

@@ -5,17 +5,20 @@ Four implementations, each returning ``(y, aux)`` as the reference's do:
 
   dense   -- every expert on every token, gate-combined over all E (the
              oracle).
-  ragged  -- (token, expert) pairs sorted by expert, one ``torch.matmul``
-             chain per non-empty group: the plain counterpart of
-             ``jax.lax.ragged_dot``.  The group sizes are read to the host
-             once per call.
+  ragged  -- (token, expert) pairs sorted by expert, the group offsets
+             computed on the device, then each group through its expert
+             (``kernels/grouped_ffn``): the counterpart of
+             ``jax.lax.ragged_dot``.  On the card two hand-written grouped
+             launches, which read the offsets there (no host read), and
+             their hand-written backward under autograd; on the CPU the
+             kernels' plain version, a loop over the groups.
   gather  -- the tiny-batch path: every expert on the call's few rows,
              then each token takes and combines its top-k outputs (no
              weight copies, no host sync).
   ep      -- expert parallelism over the parallel context's mesh
              (:func:`moe_ep`): capacity-bounded all-to-all dispatch and
              combine over the EP process group, the local experts on the
-             ``ragged`` grouped path, and the TP split of ``f`` reduced
+             grouped path, and the TP split of ``f`` reduced
              with one all-reduce over the model group a layer.
 
 ``moe_layer`` dispatches as the reference does: ``ep`` runs ``moe_ep``
@@ -38,6 +41,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import context as dist_ctx
+from repro_torch.kernels.grouped_ffn import ops as gffn
 from repro_torch.models import ops
 from repro_torch.serving import trace as tr_lib
 
@@ -121,40 +125,36 @@ def _expert_ffn(p: Dict, cfg: ModelConfig, e: int,
     return h @ p["w_down"][e]
 
 
-def _grouped_ffn(p: Dict, cfg: ModelConfig, x_sorted: torch.Tensor,
-                 sizes) -> torch.Tensor:
-    """Rows grouped by expert (``sizes[e]`` rows of expert e, in order)
-    through their experts: x_sorted [sum(sizes), d] -> [sum(sizes), d]."""
+def _ragged_experts(p: Dict, cfg: ModelConfig, x_sorted: torch.Tensor,
+                    offsets: torch.Tensor) -> torch.Tensor:
+    """The sorted rows through their experts, grouped by ``offsets``
+    [E+1] (int32, on the rows' device): ``grouped_ffn``."""
     with tr_lib.span("repro.moe.experts"):
-        outs, start = [], 0
-        for e, n in enumerate(sizes):
-            if n:
-                outs.append(_expert_ffn(p, cfg, e,
-                                        x_sorted[start:start + n]))
-                start += n
-        return torch.cat(outs) if outs else x_sorted[:0]
+        return gffn.grouped_ffn(x_sorted, offsets, p["w_up"],
+                                p.get("w_gate") if cfg.gated_mlp else None,
+                                p["w_down"], cfg.activation)
 
 
 def moe_ragged(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
-    """Sort by expert, one matmul chain per non-empty group (exact
-    FLOPs).  The weighted combine casts ``topk_w`` to the experts'
-    output dtype before the k-sum, as the reference does."""
+    """Sort by expert, each group through its expert (exact FLOPs).  The
+    group offsets come from the sorted expert ids on the device
+    (``searchsorted``), so the dispatch reads nothing to the host.  The
+    weighted combine casts ``topk_w`` to the experts' output dtype
+    before the k-sum, as the reference does."""
     m = cfg.moe
     t = x_flat.shape[0]
     probs, topk_idx, topk_w = _router(p, x_flat, cfg)
     with tr_lib.span("repro.moe.dispatch"):
-        flat_expert = topk_idx.reshape(-1)                   # [T*k]
-        order = torch.argsort(flat_expert, stable=True)
-        token_of_pair = torch.arange(t * m.top_k, device=x_flat.device) \
-            // m.top_k
-        x_sorted = x_flat[token_of_pair[order]]
-        # bincount reads its input's min and max to the host
-        with tr_lib.sync("moe_bincount"):
-            counts = torch.bincount(flat_expert, minlength=m.n_experts)
-        with tr_lib.sync("moe_sizes"):
-            sizes = counts.tolist()
-    y_sorted = _grouped_ffn(_unique_experts(p["routed"], cfg), cfg,
-                            x_sorted, sizes)
+        # pair i is token i // k's choice; a stable sort keeps each
+        # expert's pairs in token order
+        sorted_expert, order = torch.sort(topk_idx.reshape(-1), stable=True)
+        x_sorted = x_flat[order // m.top_k]
+        offsets = torch.searchsorted(
+            sorted_expert, torch.arange(m.n_experts + 1,
+                                        device=x_flat.device),
+            out_int32=True)
+    y_sorted = _ragged_experts(_unique_experts(p["routed"], cfg), cfg,
+                               x_sorted, offsets)
     with tr_lib.span("repro.moe.combine"):
         y_pairs = torch.empty_like(y_sorted)
         y_pairs[order] = y_sorted                            # unsort
@@ -200,10 +200,11 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
     the shard that stores its expert (spread over an expert's R replicas
     by token), at most ``capacity`` pairs a destination (later pairs are
     dropped and contribute nothing); one all-to-all over the EP group
-    dispatches, the shard's experts run on the ``ragged`` grouped path
-    over the rows it received (empty capacity slots carry no expert and
-    are skipped), one all-reduce over the model group sums the TP split
-    of f, a second all-to-all returns the rows, and each token combines
+    dispatches, the shard's experts run on the grouped path
+    (``grouped_ffn``) over the rows it received (empty capacity slots
+    carry no expert and are skipped), one all-reduce over the model
+    group sums the TP split of f, a second all-to-all returns the rows,
+    and each token combines
     its k results.  The aux loss is the mean over the batch axes of each
     shard's.  Returns (y [T, d], aux); counts the call and its dropped
     pairs (``ep_calls``, ``ep_dropped``)."""
@@ -252,7 +253,9 @@ def moe_ep(p: Dict, cfg: ModelConfig, x_flat: torch.Tensor):
         stats = torch.cat([counts[:e_loc], (~keep).sum().view(1)]).tolist()
     group_sizes, dropped = stats[:-1], stats[-1]
     rows = order[:sum(group_sizes)]
-    y_rows = _grouped_ffn(local, cfg, rx[rows], group_sizes)
+    offsets = torch.cumsum(counts[:e_loc], 0, dtype=torch.int32)
+    y_rows = _ragged_experts(local, cfg, rx[rows],
+                             torch.cat([offsets.new_zeros(1), offsets]))
     if tp is not None:
         coll.all_reduce(y_rows, "sum", coll.axis_group(mesh, tp))
     y_recv = torch.zeros_like(rx)

@@ -5,6 +5,7 @@ file imports nothing of JAX, so it runs where only PyTorch is installed:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -679,7 +680,7 @@ def test_cuda_moe_implementations_agree_at_deepseek_width(cuda_device, t):
     from repro_torch.models import moe
     cfg = get_config("deepseek-moe-16b")
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    p = params_lib._init_moe(gen, cfg, (), torch.bfloat16, cuda_device)
+    p = params_lib._init_moe(gen, cfg, (), torch.bfloat16, cuda_device, 1)
     x = _rand(gen, cuda_device, torch.bfloat16, t, cfg.d_model)
     outs = {name: fn(p, cfg, x) for name, fn in moe.IMPLS.items()}
     ref = outs["dense"][0].float()
@@ -689,6 +690,281 @@ def test_cuda_moe_implementations_agree_at_deepseek_width(cuda_device, t):
         assert y.shape == (t, cfg.d_model) and y.dtype == torch.bfloat16
         assert float((y.float() - ref).abs().max()) <= 2e-2 * scale, name
         assert abs(float(aux) - float(outs["dense"][1])) < 1e-5
+
+
+def _skewed_sizes(rng, pairs, n_experts):
+    """Group sizes of ``pairs`` pairs over ``n_experts``: a quarter of the
+    experts (the first among them) empty, the rest drawn with weights
+    falling as 1 / rank, so a few groups are large and most are small."""
+    w = 1.0 / np.arange(1, n_experts + 1) ** 1.2
+    w[rng.permutation(n_experts)[:n_experts // 4]] = 0.0
+    w[0] = 0.0
+    return rng.multinomial(pairs, w / w.sum()).tolist()
+
+
+def _grouped_inputs(gen, dev, sizes, d):
+    x = _rand(gen, dev, torch.bfloat16, sum(sizes), d)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                           dtype=torch.int32, device=dev)
+    return x, offsets
+
+
+def _max_rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+
+
+def _loop(p, cfg, x_sorted, sizes):
+    """The per-group loop the grouped kernels replaced: one matmul chain
+    a non-empty group, in the rows' dtype."""
+    from repro_torch.models import moe
+    outs, start = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            outs.append(moe._expert_ffn(p, cfg, e, x_sorted[start:start + n]))
+            start += n
+    return torch.cat(outs) if outs else x_sorted[:0]
+
+
+@pytest.fixture(scope="module")
+def deepseek_routed():
+    """deepseek-moe-16b's routed experts at full width (64 of 1408, bf16,
+    seeded), built once for the module's grouped-kernel tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = params_lib._init_moe(gen, cfg, (), torch.bfloat16,
+                             torch.device("cuda"), 1)
+    return cfg, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [9, 512, 16128])
+def test_cuda_grouped_ffn_matches_the_loop(cuda_device, deepseek_routed,
+                                           pairs):
+    """The grouped kernel at deepseek-moe-16b's widths against the loop
+    it replaces (one bf16 matmul chain a group) and its plain version,
+    over skewed groups with empty experts (the first among them), to 2e-2
+    of the largest output; two launches a call."""
+    from repro_torch.kernels.grouped_ffn import ops as gf
+    cfg, p = deepseek_routed
+    r = p["routed"]
+    sizes = _skewed_sizes(np.random.default_rng(pairs), pairs, 64)
+    gen = torch.Generator(device=cuda_device).manual_seed(pairs)
+    x, offsets = _grouped_inputs(gen, cuda_device, sizes, cfg.d_model)
+    before = gf.launches
+    with torch.no_grad():
+        y = gf.grouped_ffn(x, offsets, r["w_up"], r["w_gate"], r["w_down"],
+                           "silu")
+        loop = _loop(r, cfg, x, sizes)
+        plain = gf.grouped_ffn_plain(x, offsets, r["w_up"], r["w_gate"],
+                                     r["w_down"], "silu")
+    torch.cuda.synchronize()
+    assert gf.launches == before + 2
+    assert y.shape == (pairs, cfg.d_model) and y.dtype == torch.bfloat16
+    assert bool(torch.isfinite(y).all())
+    assert _max_rel(y, loop) <= 2e-2
+    assert _max_rel(y, plain) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expert", [0, 37, 63])
+def test_cuda_grouped_ffn_every_pair_on_one_expert(cuda_device,
+                                                   deepseek_routed, expert):
+    """512 pairs all on one expert (the first, a middle one, the last):
+    four full row tiles of one group, every other group empty."""
+    from repro_torch.kernels.grouped_ffn import ops as gf
+    cfg, p = deepseek_routed
+    r = p["routed"]
+    sizes = [0] * 64
+    sizes[expert] = 512
+    gen = torch.Generator(device=cuda_device).manual_seed(expert)
+    x, offsets = _grouped_inputs(gen, cuda_device, sizes, cfg.d_model)
+    with torch.no_grad():
+        y = gf.grouped_ffn(x, offsets, r["w_up"], r["w_gate"], r["w_down"],
+                           "silu")
+        loop = _loop(r, cfg, x, sizes)
+    torch.cuda.synchronize()
+    assert _max_rel(y, loop) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", True),
+                                       ("gelu", False), ("relu", False)])
+def test_cuda_grouped_ffn_modes_and_edges(cuda_device, act, gated):
+    """Each activation, gated and not, at widths that are multiples of 64
+    but not of the kernel's 128- and 256-column tiles (d 320, f 192), over
+    groups that are not multiples of its 128-row tile, with empty ones
+    (the first and the last): against the plain version to 2e-2."""
+    from repro_torch.kernels.grouped_ffn import ops as gf
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    e, d, f = 6, 320, 192
+    sizes = [0, 130, 1, 127, 300, 0]
+    w_up = _rand(gen, cuda_device, torch.bfloat16, e, d, f) / d ** 0.5
+    w_gate = (_rand(gen, cuda_device, torch.bfloat16, e, d, f) / d ** 0.5
+              if gated else None)
+    w_down = _rand(gen, cuda_device, torch.bfloat16, e, f, d) / f ** 0.5
+    x, offsets = _grouped_inputs(gen, cuda_device, sizes, d)
+    y = gf.grouped_ffn(x, offsets, w_up, w_gate, w_down, act)
+    want = gf.grouped_ffn_plain(x, offsets, w_up, w_gate, w_down, act)
+    torch.cuda.synchronize()
+    assert _max_rel(y, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "grok-1-314b"])
+def test_cuda_grouped_ffn_at_the_other_moe_widths(cuda_device, arch):
+    """The two other MoE models that serve through ``ragged``: jamba's
+    16 experts (d 4096, f 14336, gated SiLU) and grok's 8 (d 6144, f
+    32768, gated GELU), bf16 on the warpgroup kernel, 300 pairs with an
+    empty expert and groups off the 128-row tile, against the plain
+    version and the loop to 2e-2 of the largest output."""
+    from repro_torch.kernels.grouped_ffn import ops as gf
+    cfg = get_config(arch)
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    gen = torch.Generator(device=cuda_device).manual_seed(e)
+    w = {"w_up": _rand(gen, cuda_device, torch.bfloat16, e, d, f) / d ** 0.5,
+         "w_gate": _rand(gen, cuda_device, torch.bfloat16, e, d, f)
+         / d ** 0.5,
+         "w_down": _rand(gen, cuda_device, torch.bfloat16, e, f, d)
+         / f ** 0.5}
+    sizes = [0] + [300 // (e - 1)] * (e - 2)
+    sizes.append(300 - sum(sizes))
+    x, offsets = _grouped_inputs(gen, cuda_device, sizes, d)
+    with torch.no_grad():
+        y = gf.grouped_ffn(x, offsets, w["w_up"], w["w_gate"], w["w_down"],
+                           cfg.activation)
+        plain = gf.grouped_ffn_plain(x, offsets, w["w_up"], w["w_gate"],
+                                     w["w_down"], cfg.activation)
+        loop = _loop(w, cfg, x, sizes)
+    torch.cuda.synchronize()
+    assert _max_rel(y, plain) <= 2e-2
+    assert _max_rel(y, loop) <= 2e-2
+
+
+def _expert_stores(gen, dev, dtype, e, d, f, gated, spread=1, cut=1):
+    """Seeded stores of ``e * spread`` experts of width ``f * cut``; the
+    calls read every ``spread``-th expert (replicated storage's
+    ``w[::R]``) and its first ``f`` (a tensor-parallel block of f)."""
+    w = {"w_up": _rand(gen, dev, dtype, e * spread, d, f * cut) / d ** 0.5,
+         "w_down": _rand(gen, dev, dtype, e * spread, f * cut, d)
+         / f ** 0.5}
+    if gated:
+        w["w_gate"] = (_rand(gen, dev, dtype, e * spread, d, f * cut)
+                       / d ** 0.5)
+    return w
+
+
+def _views(stores, spread, f=None):
+    return {k: v[::spread, :f] if k == "w_down" else v[::spread, :, :f]
+            for k, v in stores.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,f,spread,cut", [
+    (torch.float32, 64, 32, 1, 1),     # the reduced configs' f32: CUDA cores
+    (torch.float32, 72, 40, 2, 2),
+    (torch.bfloat16, 72, 40, 1, 1),    # bf16 off the 64-column blocks
+    (torch.bfloat16, 320, 192, 2, 1),  # replicated storage, warpgroups
+    (torch.bfloat16, 320, 192, 1, 2)])  # a TP block of f, warpgroups
+@pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", False)])
+def test_cuda_grouped_ffn_f32_odd_widths_and_strided_experts(
+        cuda_device, dtype, d, f, spread, cut, act, gated):
+    """Every call the card takes goes to a kernel: f32 and bf16 at widths
+    that are not multiples of 64 on the CUDA cores, and strided experts
+    (every second of a store, the first half of each expert's f) on
+    either, against the plain version on the same tensors: 1e-5 of the
+    largest output in f32, 2e-2 in bf16."""
+    from repro_torch.kernels.grouped_ffn import ops as gf
+    gen = torch.Generator(device=cuda_device).manual_seed(d + f)
+    sizes = [0, 70, 1, 63, 130, 0]
+    w = _views(_expert_stores(gen, cuda_device, dtype, len(sizes), d, f,
+                              gated, spread, cut), spread, f)
+    assert (spread == cut == 1) == w["w_up"].is_contiguous()
+    x = _rand(gen, cuda_device, dtype, sum(sizes), d)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                           dtype=torch.int32, device=cuda_device)
+    before = gf.launches
+    with torch.no_grad():
+        y = gf.grouped_ffn(x, offsets, w["w_up"], w.get("w_gate"),
+                           w["w_down"], act)
+        want = gf.grouped_ffn_plain(x, offsets, w["w_up"], w.get("w_gate"),
+                                    w["w_down"], act)
+    torch.cuda.synchronize()
+    assert gf.launches == before + 2
+    assert _max_rel(y, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,f", [(torch.float32, 64, 32),
+                                       (torch.float32, 72, 40),
+                                       (torch.bfloat16, 256, 192)])
+@pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", True),
+                                       ("relu", False)])
+def test_cuda_grouped_ffn_bwd_matches_plain(cuda_device, dtype, d, f, act,
+                                            gated):
+    """The hand-written backward (under autograd, through
+    ``GroupedFFNFn``) against autograd of the plain version on the same
+    card tensors, with empty experts and strided (replicated) weights:
+    every gradient within 1e-4 (f32) or 2e-2 (bf16) of its largest |g|,
+    zero for the experts no pair reaches; one backward launch."""
+    from repro_torch.kernels.grouped_ffn import ops as gf
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 3 + f)
+    sizes = [0, 70, 1, 63, 130, 0]
+    stores = _expert_stores(gen, cuda_device, dtype, len(sizes), d, f,
+                            gated, 2)
+    x = _rand(gen, cuda_device, dtype, sum(sizes), d)
+    dy = _rand(gen, cuda_device, dtype, sum(sizes), d)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                           dtype=torch.int32, device=cuda_device)
+
+    def grads(fn):
+        leaves = {"x": x.clone().requires_grad_()}
+        leaves.update({k: v.clone().requires_grad_()
+                       for k, v in stores.items()})
+        w = _views({k: v for k, v in leaves.items() if k != "x"}, 2)
+        fn(leaves["x"], offsets, w["w_up"], w.get("w_gate"), w["w_down"],
+           act).backward(dy)
+        return {k: v.grad for k, v in leaves.items()}
+    before = gf.launches_bwd
+    got = grads(gf.grouped_ffn)
+    want = grads(gf.grouped_ffn_plain)
+    torch.cuda.synchronize()
+    assert gf.launches_bwd == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for k, g in want.items():
+        assert got[k].shape == g.shape and got[k].dtype == g.dtype, k
+        assert _max_rel(got[k], g) <= tol, (k, _max_rel(got[k], g))
+    # the experts no pair reaches, and the store's unread copies
+    idle = [i for i in range(2 * len(sizes)) if i % 2 or sizes[i // 2] == 0]
+    assert not got["w_up"][idle].any() and not got["w_down"][idle].any()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ragged_reads_nothing_to_the_host(cuda_device,
+                                                   deepseek_routed):
+    """``moe_ragged`` at deepseek-moe-16b's width on 512 tokens runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so no operation of the
+    call copies to the host or waits for the card; its experts take two
+    grouped launches, and it agrees with ``moe_dense``."""
+    from repro_torch.kernels.grouped_ffn import ops as gf
+    from repro_torch.models import moe
+    cfg, p = deepseek_routed
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = _rand(gen, cuda_device, torch.bfloat16, 512, cfg.d_model)
+    with torch.no_grad():
+        moe.moe_ragged(p, cfg, x)           # builds and warms up
+        torch.cuda.synchronize()
+        before = gf.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, _ = moe.moe_ragged(p, cfg, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dense, _ = moe.moe_dense(p, cfg, x)
+    assert gf.launches == before + 2
+    assert _max_rel(y, dense) <= 2e-2
 
 
 @pytest.mark.cuda
@@ -851,13 +1127,16 @@ def test_cuda_train_step_matches_cpu(cuda_device, arch):
              "labels": torch.randint(0, cfg.vocab_size, (2, 48),
                                      generator=g)}
     losses = []
+    from repro_torch.kernels.grouped_ffn import ops as gf
     for params, dev in ((p_cpu, "cpu"), (p_gpu, "cuda")):
-        fa.launches_bwd = ms.launches_bwd = 0
+        fa.launches_bwd = ms.launches_bwd = gf.launches_bwd = 0
         loss, _ = model_lib.loss_fn(params, cfg, {k: v.to(dev) for k, v
                                                   in batch.items()})
         loss.backward()
         losses.append(float(loss.detach()))
     assert fa.launches_bwd + ms.launches_bwd > 0 or arch == "minicpm3-4b"
+    # the MoE layers' experts train through the grouped backward
+    assert (gf.launches_bwd > 0) == (arch == "deepseek-moe-16b")
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
     for pc, pg in zip(leaves(p_cpu), leaves(p_gpu)):
         scale = float(pc.grad.abs().max())

@@ -21,6 +21,7 @@ from repro_torch.distributed import sharding
 from repro_torch.kernels import meta as kmeta
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.grouped_ffn import ops as gf
 from repro_torch.kernels.mamba_scan import ops as ms
 from repro_torch.launch import dryrun
 from repro_torch.models import moe
@@ -62,6 +63,10 @@ BOUNDS = [
      "0.0869", None),
     ("scan backward", lambda: ms.cost_bwd(1, 1024, 8192, 16), PEAK_BF16,
      "0.0379", 127_074_304),
+    # the document cell's mean prefill: 2,690 tokens x top-6 over all 64
+    # of deepseek-moe-16b's experts
+    ("grouped ffn P=16140", lambda: gf.cost(16140, 2048, 1408, 64),
+     PEAK_BF16, "0.3700", 1_239_515_136),
 ]
 
 
@@ -183,8 +188,9 @@ def test_scan_meta_branches():
 @pytest.mark.parametrize("call", [
     lambda t: fa.flash_attention(t, t, t),
     lambda t: da.decode_attention(t, t, t, t),
-    lambda t: ms.mamba_scan(t, t, t, t, t, t)],
-    ids=["flash", "decode", "scan"])
+    lambda t: ms.mamba_scan(t, t, t, t, t, t),
+    lambda t: gf.grouped_ffn(t, t, t, t, t, "silu")],
+    ids=["flash", "decode", "scan", "grouped_ffn"])
 def test_other_devices_still_raise(call):
     from _torch_device_support import no_kernel_tensor
     with pytest.raises(ValueError, match="no kernel for device"):

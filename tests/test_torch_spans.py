@@ -2,9 +2,11 @@
 a site returns the shared no-op and records nothing; under
 ``torch.profiler`` the serving path of two reduced engines behind an
 ``EngineClusterAdapter`` and the ``rl`` policy records its named spans,
-nested as the calls nest, one ``repro.sync.moe_sizes`` a ``moe_ragged``
-call and one ``repro.sync.next_tokens`` a decode iteration; and the served
-tokens and routing decisions are the same with the profiler as without."""
+nested as the calls nest, one ``repro.moe.dispatch`` a ``moe_ragged``
+call and no sync span inside it (the dispatch and the grouped experts
+read nothing to the host), and one ``repro.sync.next_tokens`` a decode
+iteration; and the served tokens and routing decisions are the same with
+the profiler as without."""
 import dataclasses
 
 import numpy as np
@@ -50,8 +52,6 @@ PARENTS = {
     "repro.moe.combine": "repro.model.ffn",
     "repro.moe.aux": "repro.model.ffn",
     "repro.moe.shared": "repro.model.ffn",
-    "repro.sync.moe_bincount": "repro.moe.dispatch",
-    "repro.sync.moe_sizes": "repro.moe.dispatch",
     "repro.mamba.in_proj": "repro.model.mamba",
     "repro.mamba.conv": "repro.model.mamba",
     "repro.mamba.ssm_inputs": "repro.model.mamba",
@@ -68,8 +68,7 @@ EXPECTED = {
     "deepseek-moe-16b": COMMON | {
         "repro.model.attn", "repro.moe.gate", "repro.moe.dispatch",
         "repro.moe.experts", "repro.moe.combine", "repro.moe.aux",
-        "repro.moe.shared", "repro.sync.moe_bincount",
-        "repro.sync.moe_sizes"},
+        "repro.moe.shared"},
     "falcon-mamba-7b": (COMMON - {"repro.model.ffn"}) | {
         "repro.model.mamba", "repro.mamba.in_proj", "repro.mamba.conv",
         "repro.mamba.ssm_inputs", "repro.mamba.scan", "repro.mamba.out"},
@@ -229,8 +228,7 @@ def test_serving_spans_nest_and_leave_the_output_alone(arch, monkeypatch):
         cfg = get_config(arch).reduced(**OVERRIDES[arch])
         moe_layers = cfg.n_layers - 1
         assert ragged > 0
-        assert count["repro.sync.moe_sizes"] == ragged
-        assert count["repro.sync.moe_bincount"] == ragged
+        assert count["repro.moe.dispatch"] == ragged
         assert count["repro.moe.gate"] == passes * moe_layers
         assert count["repro.model.attn"] == passes * cfg.n_layers
     else:
